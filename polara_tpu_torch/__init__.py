@@ -1,0 +1,26 @@
+"""polara_tpu_torch: the PyTorch/CUDA port of polara_tpu.
+
+Mirrors the JAX package's module layout and names.  The device tier
+(``ops``, ``models``, ``evaluation``, ``runtime``, ``datasets``) imports
+torch and numpy only; the pandas data tier (``data``) loads on first use
+of :class:`RecommenderData`, so importing this package loads neither
+pandas nor jax.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "RecommenderData": "polara_tpu_torch.data",
+    "RecommenderModel": "polara_tpu_torch.models",
+    "SVDModel": "polara_tpu_torch.models",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(module), name)

@@ -1,0 +1,200 @@
+"""Fused factor scoring -> seen-item masking -> top-k.
+
+Port of :mod:`polara_tpu.ops.pallas`.  :func:`fused_score_topk` returns,
+per user row, the top-k of ``proj @ itemsᵀ`` with columns at or beyond
+``n_valid_cols`` and seen items at -inf, ties to the lowest column, and
+``PAD_CONST`` (value -inf) where fewer than k finite scores exist.
+
+* On CUDA tensors it launches the hand-written kernel
+  ``polara_tpu_torch/csrc/fused_topk.cu`` (built by
+  :mod:`polara_tpu_torch.ops._cuda_build`), or raises.  The dense score
+  block never exists in device memory.
+* On CPU tensors it runs :func:`fused_score_topk_reference`, the plain
+  version: an f32 matmul, the masks, a stable descending sort.
+
+Seen items come as a packed bitmask in the natural layout: word
+``col // 32``, bit ``col % 32``, held in an int32 tensor with the uint32
+bit pattern (the TPU kernel's striped layout existed only for
+``pltpu.repeat``).  Packing requires unique (row, col) pairs, which the
+data model guarantees.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from polara_tpu_torch.ops.topk import PAD_CONST
+
+MAX_K = 128      # the TPU kernel's carry width; the CUDA kernel keeps it
+MAX_RANK = 256   # rank the CUDA kernel stages in shared memory
+
+_WORD_BITS = 32
+
+
+def _n_words(n_cols: int) -> int:
+    return max(1, -(-n_cols // _WORD_BITS))
+
+
+def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding uint32 values -> int32 with the same bits."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def pack_seen_bits(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
+                   n_cols: int) -> torch.Tensor:
+    """(n_rows, ceil(n_cols / 32)) int32 bitmask with bit (row, col) set,
+    on the device of ``rows``.  The bits of unique pairs are distinct, so
+    summing them (in int64, free of overflow) composes like bitwise-or."""
+    rows = rows.long()
+    cols = cols.long()
+    n_words = _n_words(n_cols)
+    words = torch.zeros(n_rows * n_words, dtype=torch.int64,
+                        device=rows.device)
+    words.index_add_(0, rows * n_words + (cols >> 5),
+                     torch.ones_like(cols) << (cols & 31))
+    return _as_int32_bits(words).view(n_rows, n_words)
+
+
+def clear_seen_bits(bits: torch.Tensor, rows: torch.Tensor,
+                    cols: torch.Tensor) -> torch.Tensor:
+    """Clear the (row, col) bits of a packed bitmask: the inverse of
+    :func:`pack_seen_bits` for unique pairs whose bit is set (lets a
+    holdout study reuse a full-stream mask without re-packing)."""
+    n_rows, n_words = bits.shape
+    rows = rows.long()
+    cols = cols.long()
+    clear = torch.zeros(n_rows * n_words, dtype=torch.int64,
+                        device=bits.device)
+    clear.index_add_(0, rows * n_words + (cols >> 5),
+                     torch.ones_like(cols) << (cols & 31))
+    words = (bits.reshape(-1).long() & 0xFFFFFFFF) & ~clear
+    return _as_int32_bits(words).view(n_rows, n_words)
+
+
+def seen_mask(bits: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Unpack a bitmask to a dense (n_rows, n_cols) bool tensor."""
+    shifts = torch.arange(_WORD_BITS, device=bits.device, dtype=torch.int32)
+    dense = (bits.unsqueeze(-1) >> shifts) & 1
+    return dense.reshape(bits.shape[0], -1)[:, :n_cols].bool()
+
+
+def fused_score_topk_reference(proj: torch.Tensor, items: torch.Tensor,
+                               seen_bits: torch.Tensor, k: int,
+                               filter_seen: bool = True,
+                               n_valid_cols: Optional[int] = None,
+                               return_values: bool = False):
+    """Plain PyTorch version of :func:`fused_score_topk` (same contract,
+    any device): f32 matmul, -inf masks, stable descending sort."""
+    n_items = items.shape[0]
+    n_valid = min(n_items, n_valid_cols if n_valid_cols is not None
+                  else n_items)
+    scores = proj.float() @ items.float().T
+    col_ids = torch.arange(n_items, device=scores.device)
+    scores = scores.masked_fill(col_ids >= n_valid, -torch.inf)
+    if filter_seen:
+        scores = scores.masked_fill(seen_mask(seen_bits, n_items),
+                                    -torch.inf)
+    order = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals = order.values[:, :k]
+    idx = order.indices[:, :k].to(torch.int32)
+    if k > n_items:
+        pad = k - n_items
+        vals = torch.nn.functional.pad(vals, (0, pad), value=-torch.inf)
+        idx = torch.nn.functional.pad(idx, (0, pad), value=PAD_CONST)
+    idx = idx.masked_fill(vals == -torch.inf, PAD_CONST)
+    if return_values:
+        return vals, idx
+    return idx
+
+
+def _check_kernel_inputs(proj, items, seen_bits, n_valid, filter_seen):
+    for name, t, dtype in (("proj", proj, torch.float32),
+                           ("items", items, torch.float32),
+                           ("seen_bits", seen_bits, torch.int32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    rank = proj.shape[1]
+    if items.shape[1] != rank:
+        raise ValueError(f"rank mismatch: proj {tuple(proj.shape)} vs "
+                         f"items {tuple(items.shape)}")
+    if not 1 <= rank <= MAX_RANK:
+        raise ValueError(f"fused top-k kernel supports 1 <= rank <= "
+                         f"{MAX_RANK}, got {rank}")
+    if seen_bits.shape[0] != proj.shape[0]:
+        raise ValueError("seen_bits must have one row per proj row")
+    if filter_seen and seen_bits.shape[1] < -(-n_valid // _WORD_BITS):
+        raise ValueError(f"seen_bits has {seen_bits.shape[1]} words per "
+                         f"row; {n_valid} columns need "
+                         f"{-(-n_valid // _WORD_BITS)}")
+    if max(proj.shape[0], items.shape[0], n_valid) >= 2 ** 31:
+        raise ValueError("sizes must fit in int32")
+
+
+def fused_score_topk(proj: torch.Tensor, items: torch.Tensor,
+                     seen_bits: torch.Tensor, k: int,
+                     filter_seen: bool = True,
+                     n_valid_cols: Optional[int] = None,
+                     return_values: bool = False,
+                     tile_skip: bool = False
+                     ) -> Union[torch.Tensor, Tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+    """Top-k of ``proj @ itemsᵀ`` per user: (n_users, k) int32 indices, or
+    ``(values, indices)`` with ``return_values``.
+
+    ``seen_bits``: (n_users, >= ceil(n_valid / 32)) int32 bitmask (see
+    :func:`pack_seen_bits`).  ``tile_skip`` is accepted for parity with
+    the JAX API and changes nothing: the kernel's threshold test skips
+    losing candidates either way.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, counted in
+    ``fused_score_topk.launches``.
+    """
+    if k > MAX_K:
+        raise ValueError(f"fused top-k supports k <= {MAX_K}")
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    devices = {proj.device, items.device, seen_bits.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {devices}")
+    device = proj.device
+    if device.type == "cpu":
+        return fused_score_topk_reference(
+            proj, items, seen_bits, k, filter_seen=filter_seen,
+            n_valid_cols=n_valid_cols, return_values=return_values)
+    if device.type != "cuda":
+        raise ValueError(f"fused_score_topk runs on CPU or CUDA tensors, "
+                         f"not {device.type}")
+
+    from polara_tpu_torch.ops._cuda_build import load_library
+
+    n_users, n_items = proj.shape[0], items.shape[0]
+    n_valid = min(n_items, n_valid_cols if n_valid_cols is not None
+                  else n_items)
+    _check_kernel_inputs(proj, items, seen_bits, n_valid, filter_seen)
+    out_vals = torch.empty((n_users, k), dtype=torch.float32, device=device)
+    out_idx = torch.empty((n_users, k), dtype=torch.int32, device=device)
+    if n_users:
+        lib = load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.polara_fused_score_topk(
+                proj.data_ptr(), items.data_ptr(), seen_bits.data_ptr(),
+                out_vals.data_ptr(), out_idx.data_ptr(), n_users, n_items,
+                proj.shape[1], seen_bits.shape[1], n_valid, k,
+                int(filter_seen), stream)
+        if err != 0:
+            raise RuntimeError(f"fused_score_topk kernel launch failed "
+                               f"with cudaError_t {err}")
+        fused_score_topk.launches += 1
+    if return_values:
+        return out_vals, out_idx
+    return out_idx
+
+
+fused_score_topk.launches = 0

@@ -1,0 +1,169 @@
+"""Truncated SVD via randomized subspace iteration.
+
+Counterpart of :mod:`polara_tpu.ops.rsvd` (itself the replacement of the
+reference's ARPACK call, ``polara/recommender/models.py:844``): k-wide
+panel products through any :class:`MatmulOperator`, tall-skinny QR
+re-orthogonalization, and a final Rayleigh–Ritz projection.  PyTorch runs
+eagerly, so each stage is plain tensor code; the dense products go to
+cuBLAS and the small factorizations to cuSOLVER on CUDA.
+
+Convention parity: singular values descending, factors ``(u, s, v)`` with
+``v`` of shape (n, k).  The random start comes from a ``torch.Generator``,
+a different stream from the JAX package's, so factors agree with it in
+singular values and subspaces, never as arrays.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from polara_tpu_torch.ops.sparse import MatmulOperator, dense_operator
+from polara_tpu_torch.runtime.rng import generator_from_seed
+
+
+class SvdResult(NamedTuple):
+    u: torch.Tensor        # (m, k)
+    s: torch.Tensor        # (k,) descending
+    v: torch.Tensor        # (n, k)
+
+
+def _as_operator(a: Union[torch.Tensor, MatmulOperator]) -> MatmulOperator:
+    if isinstance(a, MatmulOperator):
+        return a
+    return dense_operator(a)
+
+
+def _operator_device(op: MatmulOperator) -> torch.device:
+    return op.operands[0].device
+
+
+def cholesky_qr2(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tall-skinny QR via two rounds of Gram -> Cholesky -> triangular
+    solve (CholeskyQR2, Fukaya et al.): the only large product is the
+    (b x b) Gram."""
+    def one_pass(a):
+        gram = a.T @ a
+        r = torch.linalg.cholesky(gram).T          # upper triangular
+        # q = a r^{-1}  <=>  q r = a
+        q = torch.linalg.solve_triangular(r, a, upper=True, left=False)
+        return q, r
+
+    q1, r1 = one_pass(y)
+    q2, r2 = one_pass(q1)
+    return q2, r2 @ r1
+
+
+def _power_step(op: MatmulOperator, q: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One two-sided orthogonalized power iteration; returns the refreshed
+    range basis and the current singular-value estimates."""
+    z, r = torch.linalg.qr(op.rmm(q))
+    s_est = torch.abs(torch.diagonal(r))
+    q, _ = torch.linalg.qr(op.mm(z))
+    return q, s_est
+
+
+def _power_until(op: MatmulOperator, q: torch.Tensor, k: int, tol: float,
+                 max_iter: int) -> Tuple[torch.Tensor, bool]:
+    """Power iterations until the top-k singular estimates are relatively
+    stable below ``tol`` (at most ``max_iter``).  Each convergence test is
+    one host sync."""
+    s_prev = torch.full((k,), torch.inf, dtype=q.dtype, device=q.device)
+    for _ in range(max_iter):
+        q, s_est = _power_step(op, q)
+        s_top = s_est[:k]
+        denom = torch.clamp(torch.abs(s_top), min=1e-30)
+        rel = torch.max(torch.abs(s_top - s_prev) / denom)
+        s_prev = s_top
+        if bool(rel < tol):
+            return q, True
+    return q, False
+
+
+def _finalize(op: MatmulOperator, q: torch.Tensor) -> SvdResult:
+    b = op.rmm(q).T                     # (b, n) = Q^T A
+    ub, s, vt = torch.linalg.svd(b, full_matrices=False)
+    return SvdResult(q @ ub, s, vt.T)
+
+
+def _build_fixed(op: MatmulOperator, pow_op: MatmulOperator,
+                 gen: torch.Generator, block: int, n_iter: int,
+                 refine_iters: int, dtype: torch.dtype
+                 ) -> SvdResult:
+    """The fixed-iteration build: random start, power loop on the power
+    operator, full-precision refinement, Rayleigh–Ritz
+    (``polara_tpu/ops/rsvd.py:_build_fixed``)."""
+    n = op.shape[1]
+    omega = torch.randn((n, block), generator=gen, dtype=dtype,
+                        device=gen.device)
+    q, _ = torch.linalg.qr(pow_op.mm(omega))
+    for _ in range(n_iter):
+        q, _ = _power_step(pow_op, q)
+    for _ in range(refine_iters):
+        q, _ = _power_step(op, q)
+    return _finalize(op, q)
+
+
+def randomized_svd(a: Union[torch.Tensor, MatmulOperator], k: int,
+                   oversample: Optional[int] = None,
+                   n_iter: int = 8, tol: Optional[float] = None,
+                   max_iter: int = 100,
+                   seed: Optional[int] = 0,
+                   dtype: Optional[torch.dtype] = None,
+                   max_escalations: int = 2,
+                   power_operator: Optional[MatmulOperator] = None,
+                   refine_iters: int = 2) -> SvdResult:
+    """Rank-k truncated SVD (semantics of the JAX package's
+    ``randomized_svd``).
+
+    ``power_operator``: optional cheaper operator (e.g. the bf16
+    :func:`~polara_tpu_torch.ops.sparse.dense_power_operator`) for the
+    power iterations; ``refine_iters`` full-precision steps follow, and
+    the Rayleigh–Ritz projection always reads the full-precision matrix.
+
+    With ``tol`` set, power iterations continue (up to ``max_iter``) until
+    the top-k singular-value estimates are relatively stable below
+    ``tol``; when they are not, the block doubles (fresh random columns)
+    up to ``max_escalations`` times.  Without ``tol``, exactly ``n_iter``
+    iterations run.
+    """
+    op = _as_operator(a)
+    m, n = op.shape
+    dtype = dtype or op.dtype
+    if k <= 0 or k > min(m, n):
+        raise ValueError(f"rank {k} out of range for shape {op.shape}")
+    block = min(k + (oversample if oversample is not None else max(10, k)),
+                min(m, n))
+
+    pow_op = power_operator if power_operator is not None else op
+    if tuple(pow_op.shape) != tuple(op.shape):
+        raise ValueError(f"power operator shape {pow_op.shape} does not "
+                         f"match {op.shape}")
+
+    gen = generator_from_seed(seed, _operator_device(op))
+    if tol is None:
+        refine = refine_iters if power_operator is not None else 0
+        u, s, v = _build_fixed(op, pow_op, gen, block, n_iter, refine,
+                               dtype)
+        return SvdResult(u=u[:, :k], s=s[:k], v=v[:, :k])
+
+    omega = torch.randn((n, block), generator=gen, dtype=dtype,
+                        device=gen.device)
+    q, _ = torch.linalg.qr(pow_op.mm(omega))
+    q, converged = _power_until(pow_op, q, k, float(tol), max_iter)
+    for _ in range(max_escalations):
+        if converged or q.shape[1] >= min(m, n):
+            break
+        grow = min(q.shape[1], min(m, n) - q.shape[1])
+        extra = pow_op.mm(torch.randn((n, grow), generator=gen, dtype=dtype,
+                                      device=gen.device))
+        q, _ = torch.linalg.qr(torch.cat([q, extra], dim=1))
+        q, converged = _power_until(pow_op, q, k, float(tol), max_iter)
+
+    if power_operator is not None and refine_iters > 0:
+        for _ in range(refine_iters):
+            q, _ = _power_step(op, q)
+
+    u, s, v = _finalize(op, q)
+    return SvdResult(u=u[:, :k], s=s[:k], v=v[:, :k])

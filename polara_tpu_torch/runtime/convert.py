@@ -1,0 +1,30 @@
+"""Carry trained factors across from the JAX package.
+
+A JAX ``SVDModel.factors`` dict (converted to numpy by the caller, e.g.
+``{k: np.asarray(v) for k, v in model.factors.items()}``) becomes a dict
+of port tensors; :meth:`RecommenderModel.set_factors` then makes a port
+model ready without a build.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+
+def factors_from_jax(factors: Dict[str, Optional[np.ndarray]],
+                     device: Union[str, torch.device] = "cpu",
+                     dtype: torch.dtype = torch.float32
+                     ) -> Dict[str, Optional[torch.Tensor]]:
+    """``{name: array or None}`` -> ``{name: tensor or None}`` on
+    ``device`` in ``dtype`` (entries that are None stay None, like the
+    JAX model's dropped user factors)."""
+    out: Dict[str, Optional[torch.Tensor]] = {}
+    for name, value in factors.items():
+        if value is None:
+            out[name] = None
+            continue
+        array = np.array(value, copy=True, order="C")  # writable copy
+        out[name] = torch.from_numpy(array).to(device=device, dtype=dtype)
+    return out

@@ -1,0 +1,77 @@
+"""Kernel tests that need an NVIDIA GPU (``cuda`` marker; they skip
+without one).  This file imports neither jax nor the JAX package, so it
+runs where only the port is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(``--noconftest`` skips ``tests/conftest.py``, which imports jax.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from polara_tpu_torch.ops import fused_topk as tf
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(seed, n_users, n_items, rank, nnz, device):
+    """Dyadic factors (multiples of 1/4): every score is exact in f32, so
+    kernel and plain version must agree bit for bit, ties included."""
+    rs = np.random.RandomState(seed)
+    proj = np.clip(np.round(rs.randn(n_users, rank) * 4) / 4, -2, 2)
+    items = np.clip(np.round(rs.randn(n_items, rank) * 4) / 4, -2, 2)
+    pairs = np.unique(np.stack([rs.randint(0, n_users, nnz),
+                                rs.randint(0, n_items, nnz)], 1), axis=0)
+    bits = tf.pack_seen_bits(torch.as_tensor(pairs[:, 0], device=device),
+                             torch.as_tensor(pairs[:, 1], device=device),
+                             n_users, n_items)
+    return (torch.as_tensor(proj, dtype=torch.float32, device=device),
+            torch.as_tensor(items, dtype=torch.float32, device=device), bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_users,n_items,rank,k,filter_seen,n_valid", [
+    (11, 33, 5000, 16, 20, True, None),
+    (13, 16, 4096, 8, 128, True, None),
+    (15, 300, 3000, 50, 10, True, None),
+    (16, 20, 35, 12, 40, False, 35),          # PAD beyond the catalog
+    (17, 64, 1000, 256, 33, False, 900),      # widest rank, masked tail
+])
+def test_kernel_matches_plain_version(seed, n_users, n_items, rank, k,
+                                      filter_seen, n_valid):
+    device = _cuda()
+    proj, items, bits = _case(seed, n_users, n_items, rank, 3 * n_users,
+                              device)
+    before = tf.fused_score_topk.launches
+    kv, ki = tf.fused_score_topk(proj, items, bits, k,
+                                 filter_seen=filter_seen,
+                                 n_valid_cols=n_valid, return_values=True)
+    pv, pi = tf.fused_score_topk_reference(proj, items, bits, k,
+                                           filter_seen=filter_seen,
+                                           n_valid_cols=n_valid,
+                                           return_values=True)
+    torch.cuda.synchronize()
+    assert tf.fused_score_topk.launches == before + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_instead_of_falling_back():
+    device = _cuda()
+    proj, items, bits = _case(1, 8, 100, 4, 10, device)
+    before = tf.fused_score_topk.launches
+    with pytest.raises(TypeError):
+        tf.fused_score_topk(proj.double(), items, bits, 5)
+    with pytest.raises(ValueError):
+        tf.fused_score_topk(proj, items.cpu(), bits, 5)
+    with pytest.raises(ValueError, match="rank"):
+        wide = torch.zeros((8, tf.MAX_RANK + 1), device=device)
+        tf.fused_score_topk(wide, torch.zeros((100, tf.MAX_RANK + 1),
+                                              device=device), bits, 5)
+    assert tf.fused_score_topk.launches == before

@@ -1,0 +1,43 @@
+"""The port's import boundary: ``polara_tpu_torch`` and its device tier
+load neither jax nor pandas (the machine with the GPU may have neither)."""
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
+           "polara_tpu_torch.ops.scoring, polara_tpu_torch.evaluation.metrics")
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_import_loads_no_jax_module():
+    proc = _run(f"""
+        import sys
+        before = set(sys.modules)
+        {IMPORTS}
+        new = sorted(set(sys.modules) - before)
+        bad = [m for m in new if m.split(".")[0] in ("jax", "jaxlib")
+               or m == "polara_tpu" or m.startswith("polara_tpu.")]
+        print("BAD", bad)
+        """)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_import_with_pandas_blocked():
+    proc = _run(f"""
+        import sys
+        sys.modules["pandas"] = None   # any 'import pandas' now raises
+        {IMPORTS}
+        import polara_tpu_torch.datasets, polara_tpu_torch.runtime.convert
+        print("IMPORTED")
+        """)
+    assert proc.returncode == 0, proc.stderr
+    assert "IMPORTED" in proc.stdout
