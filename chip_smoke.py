@@ -4,22 +4,34 @@
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
-1. Build the CUDA kernels from ``polara_tpu_torch/csrc`` (nvcc, sm_90a).
+1. Build the CUDA kernels from ``polara_tpu_torch/csrc`` (nvcc, sm_90a),
+   and beside them, in parallel, the kernel's measurement variants
+   (``PHASE_VARIANTS``); print ptxas's registers and spills, and require
+   no spills in the top-k kernel's k <= 32 instantiation.
 2. Kernel vs plain version on the card: the JAX package's kernel test
-   shapes, an integer tie case, a PAD case, a ``filter_seen=False`` case
-   and the main path's shape.
+   shapes, the tiling's edge cases (``EDGE_CASES``, integer factors
+   bit-identical, Gaussian ones re-scored), an integer tie case, a PAD
+   case, a ``filter_seen=False`` case and the main path's shape.
 3. The main path at ML-10M geometry (69,878 users x 10,677 items, ~10M
    events): seeded data on the card, one held-out event per user, dense
    block + bf16 power operator, PureSVD rank 50 by randomized subspace
    iteration, ``run_scoring_fused`` (popularity item order) ->
    ``metrics_core``.  Gates: the kernel ran, ids in range, ``fused_ok``,
    triplet residual, metric delta and top-10 overlap against exact f64
-   factors from the Gram's eigendecomposition.
+   factors from the Gram's eigendecomposition.  At the main path's own
+   inputs: the kernel against its plain version, its time, and the times
+   of its measurement variants (``phase_ms``).
 4. Where pandas is installed: ``RecommenderData`` -> ``prepare()`` ->
    ``SVDModel`` (rank 50) -> ``evaluate()`` at ML-1M geometry.
 
 Prints the card's name and power limit, a JSON line describing each
-kernel, and as the last line ``{"ok": true, "device": {...}}``.  Without
+kernel (its time at the main path's inputs beside the plain version's,
+its bound: the f32 FMA work at the card's peak from its SM count and
+max SM clock, or the bytes at the HBM rate, whichever is larger; the
+cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
+route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
+of the C entry point, each of which runs the panel transpose and then the
+score kernel), and as the last line ``{"ok": true, "device": {...}}``.  Without
 CUDA, or without the package beside it, it exits non-zero and prints no
 result.
 """
@@ -38,6 +50,26 @@ KERNEL_REPLACES = "polara_tpu/ops/pallas.py:45"
 # plain pick, relative to the row's largest absolute score: f32 FMA
 # chains over rank <= 50 drift ~1e-6 relative from cuBLAS's order
 RESCORE_RTOL = 1e-5
+# the kernel's tiling edges (64-user blocks, 128-item tiles, float4 rank
+# steps, 32-slot lists): (seed, n_users, n_items, rank, k, n_valid,
+# filter_seen); tests/test_torch_cuda.py runs the same shapes
+EDGE_CASES = [
+    (20, 65, 1000, 3, 33, 900, True),
+    (21, 63, 1000, 1, 1, 1000, True),
+    (22, 65, 777, 256, 128, 700, True),
+    (23, 63, 300, 256, 1, 250, False),
+    (24, 129, 1000, 3, 128, 999, True),
+    (25, 64, 128, 1, 33, 128, True),
+]
+# builds of fused_topk.cu that switch a part off (macros at its head),
+# timed beside the kernel at the main path's inputs
+PHASE_VARIANTS = {
+    "sync_staging": ("POLARA_SYNC_STAGING",),
+    "no_selection": ("POLARA_PHASE_NO_SELECTION",),
+    "transpose_only": ("POLARA_PHASE_TRANSPOSE_ONLY",),
+}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_LANES_PER_SM = 128      # Hopper: FP32 FMA lanes per SM
 
 
 def log(msg: str) -> None:
@@ -75,6 +107,35 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def clocks_under_load(fn, seconds: float = 2.0) -> dict:
+    """Median SM clock (MHz) and power draw (W) of card 0, sampled by
+    nvidia-smi every 100 ms while ``fn`` runs back to back."""
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        stop = time.perf_counter() + seconds
+        while time.perf_counter() < stop:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=60)[0]
+    samples = []
+    for line in text.splitlines():
+        try:
+            samples.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    mhz, watts = zip(*samples) if samples else ((), ())
+    return {"sm_mhz": float(np.median(mhz)) if mhz else None,
+            "power_w": float(np.median(watts)) if watts else None,
+            "samples": len(samples)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -169,6 +230,18 @@ def kernel_phase(device="cuda"):
         proj, items, bits = _case_tensors(rs, n_users, n_items, rank, nnz,
                                           device)
         agree.append(_compare(proj, items, bits, k)[0])
+    for seed, n_users, n_items, rank, k, n_valid, filter_seen in EDGE_CASES:
+        for integer in (True, False):
+            log(f"edge case seed={seed} users={n_users} items={n_items} "
+                f"n_valid={n_valid} rank={rank} k={k} "
+                f"filter_seen={filter_seen} "
+                f"{'integer' if integer else 'gaussian'}")
+            rs = np.random.RandomState(seed)
+            proj, items, bits = _case_tensors(rs, n_users, n_items, rank,
+                                              30 * n_users, device,
+                                              integer=integer)
+            _compare(proj, items, bits, k, filter_seen=filter_seen,
+                     n_valid=n_valid, exact=integer)
     log("case integer ties (rank 1, 12 users x 1000 items, k=16)")
     rs = np.random.RandomState(7)
     proj, items, bits = _case_tensors(rs, 12, 1000, 1, 600, device,
@@ -383,12 +456,67 @@ def main_path(geometry, device="cuda", verify_users=VERIFY_USERS):
         proj, panel, bits, TOPK, n_valid_cols=n_items, tile_skip=True), 10)
     out["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
         proj, panel, bits, TOPK, n_valid_cols=n_items), 3)
+    out["kernel_clocks"] = clocks_under_load(lambda: fused_score_topk(
+        proj, panel, bits, TOPK, n_valid_cols=n_items))
     log(f"  kernel {out['kernel_ms']:.3f} ms vs plain {out['plain_ms']:.3f} "
         f"ms at {proj.shape[0]} users; max |value diff| "
         f"{out['max_abs_err']:.2e}")
+    # the variants launch only on the card (None in a CPU rehearsal)
+    out["phase_ms"] = (phase_split(proj, panel, bits, n_items)
+                       if proj.is_cuda else None)
+    # the kernel's least work: one FMA per (user, valid item, rank step);
+    # each input read once (proj, the valid panel rows, the seen words they
+    # need), each output written once
+    out["kernel_flop"] = 2 * proj.shape[0] * n_items * RANK
+    out["kernel_bytes"] = 4 * (proj.numel() + n_items * RANK
+                               + proj.shape[0] * -(-n_items // 32)
+                               + 2 * proj.shape[0] * TOPK)
     out["stage_ms"] = stage_breakdown(dense, params, head, proj, panel, bits)
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
+
+
+def phase_split(proj, panel, bits, n_valid, reps=10):
+    """Warm ms of the kernel's C entry point in the library the port loads
+    (``full``) and in each of ``PHASE_VARIANTS``, at these inputs: two
+    rounds, the second in reverse order, averaged.  The sync-staging
+    variant must return what the kernel returns."""
+    import torch
+    from polara_tpu_torch.ops._cuda_build import load_library
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk, panel_columns
+    n_users, rank = proj.shape
+    vals = torch.empty((n_users, TOPK), dtype=torch.float32,
+                       device=proj.device)
+    idx = torch.empty((n_users, TOPK), dtype=torch.int32, device=proj.device)
+    items_t = torch.empty((rank, panel_columns(n_valid)),
+                          dtype=torch.float32, device=proj.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = {"full": load_library()}
+    libs.update({name: load_library(defines)
+                 for name, defines in PHASE_VARIANTS.items()})
+
+    def call(lib):
+        err = lib.polara_fused_score_topk(
+            proj.data_ptr(), panel.data_ptr(), items_t.data_ptr(),
+            bits.data_ptr(), vals.data_ptr(), idx.data_ptr(), n_users,
+            panel.shape[0], rank, bits.shape[1], n_valid, TOPK, 1, stream)
+        if err:
+            raise RuntimeError(f"kernel variant failed: cudaError_t {err}")
+
+    call(libs["sync_staging"])
+    torch.cuda.synchronize()
+    want_vals, want_idx = fused_score_topk(proj, panel, bits, TOPK,
+                                           n_valid_cols=n_valid,
+                                           return_values=True)
+    check(torch.equal(idx, want_idx) and torch.equal(vals, want_vals),
+          "sync-staging variant returns the kernel's ids and values")
+    times = dict.fromkeys(libs, 0.0)
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            times[name] += time_ms(lambda: call(libs[name]), reps) / 2
+    log("  kernel phases (ms): " + ", ".join(f"{k} {t:.3f}"
+                                             for k, t in times.items()))
+    return times
 
 
 def stage_breakdown(dense, params, head, proj, panel, bits, reps=10):
@@ -472,11 +600,51 @@ def data_model_phase(device="cuda"):
     return out
 
 
-def gpu_line() -> str:
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+    """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0].strip()
+
+
+def bound_ms(flop: float, nbytes: float):
+    """(least ms, "operations" or "bytes"): the f32 FMA peak of card 0 (SMs
+    x 128 lanes x 2 FLOP x its max SM clock) against the HBM rate."""
+    import torch
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_ops = flop / (sms * F32_LANES_PER_SM * 2 * mhz * 1e6) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def build_phase():
+    """Phase 1: build the kernels and their measurement variants, one nvcc
+    each, all at once; print ptxas's registers and spills and require none
+    in the top-k kernel's k <= 32 instantiation (the main path's)."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from polara_tpu_torch.ops import _cuda_build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1 + len(PHASE_VARIANTS)) as pool:
+        for built in [pool.submit(_cuda_build.build, defines) for defines
+                      in [(), *PHASE_VARIANTS.values()]]:
+            built.result()
+    _cuda_build.load_library()
+    build_s = time.perf_counter() - t0
+    report = {}
+    for name, r in _cuda_build.ptxas_report(_cuda_build.build_log).items():
+        found = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", name)
+        short = name if not found else found.group(1) + (
+            f"<{found.group(2)}>" if found.group(2) else "")
+        report[short] = r
+        log(f"  ptxas {short}: {r}")
+    main = report.get("score_topk_kernel<1>", {})
+    check(main.get("spill_stores") == 0 and main.get("spill_loads") == 0,
+          "ptxas: no spills in score_topk_kernel<1>")
+    log(f"  kernel build {build_s:.2f} s")
+    return build_s, report
 
 
 def main() -> int:
@@ -485,25 +653,17 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import ML10M_GEOMETRY
-    from polara_tpu_torch.ops import _cuda_build
-    from polara_tpu_torch.ops.fused_topk import fused_score_topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    card = gpu_line()
+    card = nvidia_smi("name,power.limit")
     log(f"gpu: {card}")
 
     log("phase 1: build the kernels")
-    t0 = time.perf_counter()
-    _cuda_build.load_library()
-    build_s = time.perf_counter() - t0
-    for line in _cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
-    log(f"  kernel build {build_s:.2f} s")
+    build_s, ptxas = build_phase()
 
     log("phase 2: kernel vs plain version")
     kernel_phase()
@@ -520,12 +680,18 @@ def main() -> int:
     if has_pandas:
         log("  " + json.dumps({"data_model": data_model_phase()}))
 
+    least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     log(json.dumps({"kernels": [{
         "name": "fused_score_topk", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": main["launches"], "max_abs_err": main["max_abs_err"],
-        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"]}],
-        "build_s": build_s}))
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": least_ms, "bound_by": bound_by,
+        "library_ms": main["stage_ms"]["cublas_scores_only"],
+        "topk_ms": main["stage_ms"]["topk_baseline"],
+        "phase_ms": main["phase_ms"],
+        "clocks_under_load": main["kernel_clocks"],
+        "ptxas": ptxas}], "build_s": build_s}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

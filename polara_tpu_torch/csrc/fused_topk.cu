@@ -1,48 +1,77 @@
 // Fused factor scoring -> seen-item masking -> top-k, for NVIDIA Hopper
-// (sm_90a).
+// (sm_90a), on the CUDA cores in f32.
 //
-// Replaces the Pallas TPU kernel polara_tpu/ops/pallas.py:_score_topk_kernel
-// (driven by fused_score_topk).  For every user row u it returns the k
-// largest scores of proj[u] . items[c] over the columns c < n_valid whose
-// seen bit is clear, in the total order (score descending, column
-// ascending); slots beyond the finite scores hold PAD (-1) with value -inf.
+// Replaces the Pallas TPU kernel of polara_tpu/ops/pallas.py:45-229
+// (_score_topk_kernel, driven by fused_score_topk).  For every user row u
+// it returns the k largest scores of proj[u] . items[c] over the columns
+// c < n_valid whose seen bit is clear, in the total order (score
+// descending, column ascending); slots beyond the finite scores hold PAD
+// (-1) with value -inf.  Every score is the f32 chain
+// acc = fmaf(proj[u][d], items[c][d], acc) for d = 0 .. rank-1 from 0, so
+// the values and the picks do not depend on the tiling.
 //
-// What bounds it on an H100: for the main path (69,878 users x 10,677
-// items, rank 50) the work is 37 G f32 FMAs and the inputs are small
-// (proj 14 MB, panel 2.1 MB, seen bits 93 MB).  Scores never leave the SM,
-// so HBM traffic is a few hundred MB.  The limits are the f32 FMA rate (no
-// tensor cores, no TF32: the reference accumulates in f32), the
-// shared-memory bandwidth that feeds the FMAs, and the L2 re-reads of the
-// item panel, which every block streams once.
+// What bounds it on an H100: at the main path's shape (69,878 users x
+// 10,677 items, rank 50) the work is 74.6 GFLOP of f32 FMAs (no tensor
+// cores, no TF32: the reference sums in f32), about 1.1 ms at the card's
+// f32 peak; the bytes (proj 14 MB, panel 2.1 MB, seen bits 93 MB) take
+// ~0.03 ms at HBM rate, since scores never leave the SM.  What can keep
+// the FMA pipes from that peak is the shared memory that feeds them (an
+// SM serves one wavefront per clock and issues four warp-FFMAs), the L2
+// re-reads of the panel (once per block) and the selection's issue slots.
 //
 // What the design does about it:
-// * A block of 8 warps owns 16 users (2 per warp) and streams the panel
-//   through shared memory in tiles of 128 items; each staged item value
-//   feeds the FMAs of both users of a warp, and every panel byte read from
-//   L2 serves 16 users.
-// * Tile rows are stored with an odd stride, so the 32 lanes of a warp,
-//   each reading its own item row at the same rank offset, hit 32
-//   different banks.
-// * Masks (catalog edge, packed seen bits: word col/32, bit col%32) are
-//   applied in registers.
-// * Each warp keeps the sorted top-k list of each of its users in
-//   registers, spread over its lanes (slot s on lane s%32).  A candidate
-//   enters only if it beats the current k-th value; candidates are
-//   inserted one at a time in ascending column order (__ballot_sync picks
-//   them), so equal scores never displace an entry and ties go to the
-//   lowest column.  That threshold test is also the TPU kernel's tile-skip
-//   guard: once a list is warm, a tile whose scores cannot enter costs one
-//   ballot per item group.
+// * A block of 8 warps owns 64 users and walks the panel in tiles of 128
+//   items; every panel byte read from L2 serves 64 users (9.3 -> 2.3 GB
+//   of L2 reads at the main path's shape, against 16 users before).
+// * The outer product is tiled in registers: each thread holds 4 users x
+//   8 items (32 accumulators).  proj (staged once) and the item tile are
+//   K-major in shared memory ([d][user], [d][item]) and read as float4; a
+//   warp covers 16 users x 64 items, so per rank step its 32 lanes read 4
+//   proj values and 2 x 32 item values, each group contiguous: 3
+//   wavefronts per 32 warp-FFMAs (6 per 8 in the previous design).
+// * The K-major panel (rank x n_pad, zero past n_valid) is a scratch copy
+//   written once per call by transpose_panel_kernel, so a tile is staged
+//   with 16-byte cp.async copies, no index arithmetic per element.  The
+//   copy of tile t+1 is issued as soon as tile t's products are done and
+//   runs while tile t's scores are selected; the seen words of a tile are
+//   loaded before its products, so their latency hides behind them.
+// * Selection reads a 64 x 128 score tile in shared memory: each warp
+//   keeps the sorted top-k lists of 8 users in registers, spread over its
+//   lanes (slot s on lane s % 32), and reads each user's row in ascending
+//   column order with the masks (catalog edge, packed seen bits: word
+//   col / 32, bit col % 32) applied.  A candidate enters only if it beats
+//   the current k-th value; candidates are inserted one at a time in
+//   ascending column order (__ballot_sync picks them), so equal scores
+//   never displace an entry and ties go to the lowest column.
+// * That threshold test is also the TPU kernel's tile-skip guard, moved
+//   into the product threads: each compares its raw scores with the k-th
+//   values the selection published and flags a user only if one beats
+//   it, so once the lists are warm most users' tiles cost one bit.
+// * At k <= 32 the kernel fits 80 registers, so 3 blocks (24 warps) share
+//   an SM and hide each other's barriers and selection.
+//
+// One call of polara_fused_score_topk launches two kernels, the panel
+// transpose and then score_topk_kernel.
+//
+// Measurement variants (chip_smoke.py builds them beside the library and
+// times each at the main path's inputs; the port never loads them):
+//   POLARA_SYNC_STAGING         tiles copied by plain float4 loads and
+//                               stores instead of cp.async
+//   POLARA_PHASE_NO_SELECTION   the selection is skipped: products, score
+//                               tile, flags, staging and barriers only
+//   POLARA_PHASE_TRANSPOSE_ONLY the entry point returns after the
+//                               transpose kernel
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kUsersPerWarp = 2;
-constexpr int kUsersPerBlock = kWarps * kUsersPerWarp;
-constexpr int kItemsPerLane = 4;
-constexpr int kTile = 32 * kItemsPerLane;
+constexpr int kThreads = kWarps * 32;
+constexpr int kUsers = 64;                     // users per block
+constexpr int kTile = 128;                     // items per tile
+constexpr int kUsersPerWarp = kUsers / kWarps; // in the selection
+constexpr int kScoreStride = kTile + 4;        // padded score-tile row
 constexpr int kMaxK = 128;
 constexpr int kMaxRank = 256;
 constexpr int kPad = -1;
@@ -101,26 +130,103 @@ __device__ __forceinline__ void insert(TopK<SLOTS>& t, float v, int c, int k,
   }
 }
 
+// 16-byte asynchronous copy global -> shared (bypasses L1: the panel is
+// re-read by every block from L2).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Issue the copies of one K-major item tile: rank rows of kTile values.
+__device__ __forceinline__ void stage_tile(float* tile, const float* items_t,
+                                           int n_pad, int base, int rank) {
+  for (int e = threadIdx.x; e < rank * (kTile / 4); e += kThreads) {
+    const int d = e / (kTile / 4);
+    const int q = e % (kTile / 4);
+    const float* src = items_t + (size_t)d * n_pad + base + 4 * q;
+#ifdef POLARA_SYNC_STAGING
+    *reinterpret_cast<float4*>(tile + 4 * e) =
+        *reinterpret_cast<const float4*>(src);
+#else
+    cp_async16(tile + 4 * e, src);
+#endif
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// items (n_items, rank) row-major -> items_t (rank, n_pad) row-major,
+// zero in the columns at or beyond limit.  Block (32, 8), 32 x 32 tiles.
+__global__ void transpose_panel_kernel(const float* __restrict__ items,
+                                       float* __restrict__ items_t, int rank,
+                                       int limit, int n_pad) {
+  __shared__ float t[32][33];
+  const int c0 = blockIdx.x * 32;
+  const int d0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r;
+    const int d = d0 + threadIdx.x;
+    t[r][threadIdx.x] =
+        c < limit && d < rank ? items[(size_t)c * rank + d] : 0.f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int d = d0 + r;
+    if (d < rank) items_t[(size_t)d * n_pad + c0 + threadIdx.x] =
+        t[threadIdx.x][r];
+  }
+}
+
+// k <= 32 (the main path) fits 80 registers and runs 3 blocks per SM;
+// larger k keeps its lists in registers at 2 or 1 block per SM.
 template <int SLOTS>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads,
+                                  SLOTS == 1 ? 3 : SLOTS == 2 ? 2 : 1)
 score_topk_kernel(const float* __restrict__ proj,
-                  const float* __restrict__ items,
+                  const float* __restrict__ items_t, int n_pad,
                   const int* __restrict__ seen, float* __restrict__ out_vals,
                   int* __restrict__ out_idx, int n_users, int rank,
                   int n_words, int limit, int k, int filter_seen) {
-  extern __shared__ float smem[];
-  const int stride = rank | 1;
-  float* tile = smem;                          // kTile rows of `stride`
-  float* uproj = smem + kTile * stride;        // kUsersPerBlock x rank
+  extern __shared__ float4 smem4[];
+  float* uproj = reinterpret_cast<float*>(smem4);  // [rank][kUsers]
+  float* tile = uproj + rank * kUsers;             // [rank][kTile]
+  float* scores = tile + rank * kTile;             // [kUsers][kScoreStride]
+  float* kth_s = scores + kUsers * kScoreStride;   // k-th value per user
+  int* live_s = reinterpret_cast<int*>(kth_s + kUsers);  // tile may enter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int user0 = blockIdx.x * kUsersPerBlock;
+  const int user0 = blockIdx.x * kUsers;
 
-  for (int e = threadIdx.x; e < kUsersPerBlock * rank; e += blockDim.x) {
-    const int u = user0 + e / rank;
-    uproj[e] = u < n_users ? proj[(size_t)user0 * rank + e] : 0.f;
+  if (limit > 0) stage_tile(tile, items_t, n_pad, 0, rank);
+  if (threadIdx.x < kUsers) {
+    kth_s[threadIdx.x] = -CUDART_INF_F;
+    live_s[threadIdx.x] = 0;
+  }
+  for (int e = threadIdx.x; e < kUsers * rank; e += kThreads) {
+    const int u = e % kUsers;  // consecutive threads, consecutive banks
+    const int d = e / kUsers;
+    uproj[e] = user0 + u < n_users ? proj[(size_t)(user0 + u) * rank + d]
+                                   : 0.f;
   }
 
+  // products: this thread's users 4 * ty .. +3, items 4 * tx .. +3 and
+  // 64 + 4 * tx .. +3; a warp spans 4 user quads x 8 item quads
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const float* pp = uproj + 4 * ty;
+  const float* xp = tile + 4 * tx;
+
+  // selection: this warp's users sel0 .. sel0 + 7; lane l loads seen word
+  // (base / 32 + l % 4) of user sel0 + l / 4
+  const int sel0 = warp * kUsersPerWarp;
+  const int word_user = user0 + sel0 + (lane >> 2);
+  const int* word_row =
+      seen + (size_t)(word_user < n_users ? word_user : 0) * n_words;
   TopK<SLOTS> top[kUsersPerWarp];
   float kth[kUsersPerWarp];
 #pragma unroll
@@ -132,72 +238,99 @@ score_topk_kernel(const float* __restrict__ proj,
     }
     kth[u] = -CUDART_INF_F;
   }
-  const float* wproj = uproj + warp * kUsersPerWarp * rank;
 
   for (int base = 0; base < limit; base += kTile) {
-    __syncthreads();  // the previous tile is consumed (and proj staged)
-    const int n_here = min(kTile, limit - base);
-    const float* src = items + (size_t)base * rank;
-    for (int e = threadIdx.x; e < n_here * rank; e += blockDim.x) {
-      const int it = e / rank;
-      tile[it * stride + (e - it * rank)] = src[e];
+    unsigned word = 0;
+    if (filter_seen && word_user < n_users) {
+      const int w = (base >> 5) + (lane & 3);
+      if (w < n_words) word = (unsigned)word_row[w];
     }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // tile staged (and proj); last selection is done
 
-    float acc[kUsersPerWarp][kItemsPerLane];
+    float acc[4][8];
 #pragma unroll
-    for (int u = 0; u < kUsersPerWarp; ++u) {
+    for (int r = 0; r < 4; ++r) {
 #pragma unroll
-      for (int i = 0; i < kItemsPerLane; ++i) acc[u][i] = 0.f;
+      for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
     }
+#pragma unroll 2
     for (int d = 0; d < rank; ++d) {
-      float x[kItemsPerLane];
+      const float4 p = *reinterpret_cast<const float4*>(pp + d * kUsers);
+      const float4 a = *reinterpret_cast<const float4*>(xp + d * kTile);
+      const float4 b =
+          *reinterpret_cast<const float4*>(xp + d * kTile + kTile / 2);
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+      const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < kItemsPerLane; ++i) {
-        x[i] = tile[(lane + 32 * i) * stride + d];
-      }
+      for (int r = 0; r < 4; ++r) {
 #pragma unroll
-      for (int u = 0; u < kUsersPerWarp; ++u) {
-        const float p = wproj[u * rank + d];
-#pragma unroll
-        for (int i = 0; i < kItemsPerLane; ++i) {
-          acc[u][i] = fmaf(p, x[i], acc[u][i]);
-        }
+        for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(pv[r], xv[i], acc[r][i]);
       }
     }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float* row = scores + (4 * ty + r) * kScoreStride + 4 * tx;
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      *reinterpret_cast<float4*>(row + kTile / 2) =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+    // flag the users of whom some raw score beats the k-th value: masks
+    // only lower scores, so an unflagged user has no candidate here
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float t = kth_s[4 * ty + r];
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) any |= acc[r][i] > t;
+      if (any) live_s[4 * ty + r] = 1;
+    }
+    __syncthreads();  // scores written; the item tile is free
+    if (base + kTile < limit) {
+      stage_tile(tile, items_t, n_pad, base + kTile, rank);
+    }
 
+#ifndef POLARA_PHASE_NO_SELECTION
+    const unsigned live = __ballot_sync(
+        kFull, lane < kUsersPerWarp && live_s[sel0 + lane] != 0);
+    if (lane < kUsersPerWarp) live_s[sel0 + lane] = 0;
 #pragma unroll
     for (int u = 0; u < kUsersPerWarp; ++u) {
-      const int user = user0 + warp * kUsersPerWarp + u;
-      if (user >= n_users) continue;  // warp-uniform
-      unsigned word = 0;
-      if (filter_seen && lane < kItemsPerLane) {
-        const int w = (base >> 5) + lane;
-        if (w < n_words) word = (unsigned)seen[(size_t)user * n_words + w];
+      // warp-uniform; the row's four loads and ballots go out together
+      if (!((live >> u) & 1u) || user0 + sel0 + u >= n_users) continue;
+      const float* row = scores + (sel0 + u) * kScoreStride;
+      float s[kTile / 32];
+      unsigned cand[kTile / 32];
+#pragma unroll
+      for (int i = 0; i < kTile / 32; ++i) {
+        const unsigned bits = __shfl_sync(kFull, word, 4 * u + i);
+        s[i] = row[32 * i + lane];
+        if (base + 32 * i + lane >= limit || ((bits >> lane) & 1u)) {
+          s[i] = -CUDART_INF_F;
+        }
+        cand[i] = __ballot_sync(kFull, s[i] > kth[u]);
       }
 #pragma unroll
-      for (int i = 0; i < kItemsPerLane; ++i) {
-        const unsigned bits = __shfl_sync(kFull, word, i);
-        const int col = base + 32 * i + lane;
-        float s = acc[u][i];
-        if (col >= limit || ((bits >> lane) & 1u)) s = -CUDART_INF_F;
-        unsigned cand = __ballot_sync(kFull, s > kth[u]);
-        while (cand) {
-          const int src_lane = __ffs(cand) - 1;
-          cand &= cand - 1;
-          const float v = __shfl_sync(kFull, s, src_lane);
+      for (int i = 0; i < kTile / 32; ++i) {
+        while (cand[i]) {
+          const int src_lane = __ffs(cand[i]) - 1;
+          cand[i] &= cand[i] - 1;
+          const float v = __shfl_sync(kFull, s[i], src_lane);
           if (v > kth[u]) {
             insert(top[u], v, base + 32 * i + src_lane, k, lane);
             kth[u] = kth_value(top[u], k);
           }
         }
       }
+      if (lane == 0) kth_s[sel0 + u] = kth[u];
     }
+#endif
   }
 
 #pragma unroll
   for (int u = 0; u < kUsersPerWarp; ++u) {
-    const int user = user0 + warp * kUsersPerWarp + u;
+    const int user = user0 + sel0 + u;
     if (user >= n_users) continue;
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j) {
@@ -211,19 +344,20 @@ score_topk_kernel(const float* __restrict__ proj,
 }
 
 template <int SLOTS>
-int launch(const float* proj, const float* items, const int* seen,
-           float* out_vals, int* out_idx, int n_users, int rank, int n_words,
-           int limit, int k, int filter_seen, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kTile * (rank | 1) +
-                                       (size_t)kUsersPerBlock * rank);
+int launch(const float* proj, const float* items_t, int n_pad,
+           const int* seen, float* out_vals, int* out_idx, int n_users,
+           int rank, int n_words, int limit, int k, int filter_seen,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)rank * (kUsers + kTile) +
+                                       (size_t)kUsers * (kScoreStride + 2));
   cudaError_t err = cudaFuncSetAttribute(
       score_topk_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_users + kUsersPerBlock - 1) / kUsersPerBlock);
-  score_topk_kernel<SLOTS><<<grid, kWarps * 32, smem, stream>>>(
-      proj, items, seen, out_vals, out_idx, n_users, rank, n_words, limit, k,
-      filter_seen);
+  const dim3 grid((n_users + kUsers - 1) / kUsers);
+  score_topk_kernel<SLOTS><<<grid, kThreads, smem, stream>>>(
+      proj, items_t, n_pad, seen, out_vals, out_idx, n_users, rank, n_words,
+      limit, k, filter_seen);
   return (int)cudaGetLastError();
 }
 
@@ -232,31 +366,46 @@ int launch(const float* proj, const float* items, const int* seen,
 // C entry point, bound with ctypes.  proj (n_users, rank) and items
 // (n_items, rank) are row-major f32; seen (n_users, n_words) holds the
 // packed bits as int32; out_vals/out_idx are (n_users, k).  Columns at or
-// beyond min(n_valid, n_items) are masked.  Returns a cudaError_t.
+// beyond limit = min(n_valid, n_items) are masked.  items_t is scratch for
+// the K-major panel: rank x n_pad f32 with n_pad = limit rounded up to a
+// multiple of 128.  Returns a cudaError_t.
 extern "C" int polara_fused_score_topk(const float* proj, const float* items,
-                                       const int* seen, float* out_vals,
-                                       int* out_idx, int n_users, int n_items,
-                                       int rank, int n_words, int n_valid,
-                                       int k, int filter_seen, void* stream) {
+                                       float* items_t, const int* seen,
+                                       float* out_vals, int* out_idx,
+                                       int n_users, int n_items, int rank,
+                                       int n_words, int n_valid, int k,
+                                       int filter_seen, void* stream) {
   if (k < 1 || k > kMaxK || rank < 1 || rank > kMaxRank || n_users < 0 ||
       n_items < 0 || n_words < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_users == 0) return (int)cudaSuccess;
-  const int limit = n_valid < n_items ? n_valid : n_items;
+  int limit = n_valid < n_items ? n_valid : n_items;
+  if (limit < 0) limit = 0;
+  const int n_pad = (limit + kTile - 1) / kTile * kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_pad > 0) {
+    const dim3 grid(n_pad / 32, (rank + 31) / 32);
+    transpose_panel_kernel<<<grid, dim3(32, 8), 0, s>>>(items, items_t, rank,
+                                                        limit, n_pad);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+#ifdef POLARA_PHASE_TRANSPOSE_ONLY
+  return (int)cudaSuccess;
+#endif
   switch ((k + 31) / 32) {
     case 1:
-      return launch<1>(proj, items, seen, out_vals, out_idx, n_users, rank,
-                       n_words, limit, k, filter_seen, s);
+      return launch<1>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
+                       rank, n_words, limit, k, filter_seen, s);
     case 2:
-      return launch<2>(proj, items, seen, out_vals, out_idx, n_users, rank,
-                       n_words, limit, k, filter_seen, s);
+      return launch<2>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
+                       rank, n_words, limit, k, filter_seen, s);
     case 3:
-      return launch<3>(proj, items, seen, out_vals, out_idx, n_users, rank,
-                       n_words, limit, k, filter_seen, s);
+      return launch<3>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
+                       rank, n_words, limit, k, filter_seen, s);
     default:
-      return launch<4>(proj, items, seen, out_vals, out_idx, n_users, rank,
-                       n_words, limit, k, filter_seen, s);
+      return launch<4>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
+                       rank, n_words, limit, k, filter_seen, s);
   }
 }

@@ -15,6 +15,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from polara_tpu_torch.runtime.device import resolve_device
 from polara_tpu_torch.runtime.rng import generator_from_seed
 
 # ML-1M rating histogram (share of 1..5 stars over the full dataset).
@@ -90,8 +91,9 @@ def make_realistic_coo_device(n_users: int, n_items: int, n_events: int,
                               rating_hist=ML1M_RATING_HIST,
                               min_events_per_user: int = 5,
                               seed: int = 0, row_chunk: int = 8192,
-                              device: Union[str, torch.device] = "cpu"):
-    """Calibrated interaction log generated on ``device``.
+                              device: Union[str, torch.device, None] = None):
+    """Calibrated interaction log generated on ``device`` (default: the
+    card when one is present, else the CPU).
 
     Per-user event counts come from ``numpy.random.RandomState(seed)``
     exactly as in the JAX package; factors, Gumbel keys and rating noise
@@ -104,7 +106,7 @@ def make_realistic_coo_device(n_users: int, n_items: int, n_events: int,
     if n_events > n_users * max_per_user:
         raise ValueError("n_events too dense for without-replacement "
                          "sampling")
-    device = torch.device(device)
+    device = resolve_device(device)
     rs = np.random.RandomState(seed)
     item_w = 1.0 / np.arange(1, n_items + 1) ** popularity_skew
     item_w /= item_w.sum()

@@ -31,6 +31,7 @@ from polara_tpu_torch.ops.scoring import (ChunkedTestData, TestChunk,
                                           run_scoring, run_scoring_fused)
 from polara_tpu_torch.ops.sparse import (CooMatrix, coo_from_arrays,
                                          dense_from_coo)
+from polara_tpu_torch.runtime.device import resolve_device
 
 
 def _flush_before_build(build_func):
@@ -45,10 +46,6 @@ def _flush_before_build(build_func):
     return wrapper
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 class RecommenderModel:
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -58,8 +55,7 @@ class RecommenderModel:
     def __init__(self, recommender_data, feedback_threshold=None,
                  device: Union[str, torch.device, None] = None):
         self.data = recommender_data
-        self.device = (torch.device(device) if device is not None
-                       else default_device())
+        self.device = resolve_device(device)
         self._recommendations = None
         self._test_plan: Optional[ChunkedTestData] = None
         self._scoring_device_output = False

@@ -5,18 +5,22 @@
 under ``polara_tpu_torch/_build/``; the file name carries a hash of the
 sources and flags, so an edited source builds anew.  The library is loaded
 with ``ctypes``.  A missing compiler or a failed build raises with the
-compiler's output: nothing falls back to a plain version.
+compiler's output: nothing falls back to a plain version.  ``defines``
+build a variant of the same sources (``-D`` macros), for measurements
+that switch a phase of a kernel off; the port itself loads the library
+built without them.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Tuple
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -25,8 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_library: Optional[ctypes.CDLL] = None
-build_log = ""   # compiler output of the build this process ran, if any
+_libraries: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+build_log = ""   # compiler output (ptxas -v) of the loaded library's build
 
 
 def sources() -> List[Path]:
@@ -47,32 +51,37 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...]) -> List[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libpolara_torch_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists;
-    returns its path."""
-    global build_log
-    target = library_path()
+def build(defines: Tuple[str, ...] = ()) -> Path:
+    """Compile the kernels unless a library for these sources and
+    ``defines`` exists; returns its path (the compiler's output is beside
+    it, with the suffix ``.log``)."""
+    target = library_path(defines)
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [find_nvcc(), *_flags(defines), "-o", tmp,
            *[str(s) for s in sources()]]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{build_log}")
+                               f"{' '.join(cmd)}\n{log}")
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)   # atomic: concurrent builders agree
     finally:
         if os.path.exists(tmp):
@@ -80,16 +89,43 @@ def build() -> Path:
     return target
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per
-    process, with every entry point's argument types declared."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """``{mangled kernel name: {"registers", "spill_stores",
+    "spill_loads"}}`` from ``ptxas -v`` output (spills in bytes)."""
+    report: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([\w$.]+)", line)
+        if found:
+            name = found.group(1)
+            report.setdefault(name, {})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills and name:
+            report[name].update(spill_stores=int(spills.group(1)),
+                                spill_loads=int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            report[name]["registers"] = int(regs.group(1))
+    return report
+
+
+def load_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library (or its ``defines`` variant), built on first use
+    and loaded once per process, with every entry point's argument types
+    declared."""
+    global build_log
+    if defines not in _libraries:
+        path = build(defines)
+        lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.polara_fused_score_topk
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr,
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                        i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-        _library = lib
-    return _library
+        _libraries[defines] = lib
+        if not defines:
+            build_log = path.with_suffix(".log").read_text()
+    return _libraries[defines]

@@ -28,12 +28,19 @@ from polara_tpu_torch.ops.topk import PAD_CONST
 
 MAX_K = 128      # the TPU kernel's carry width; the CUDA kernel keeps it
 MAX_RANK = 256   # rank the CUDA kernel stages in shared memory
+ITEM_TILE = 128  # items per tile of the CUDA kernel
 
 _WORD_BITS = 32
 
 
 def _n_words(n_cols: int) -> int:
     return max(1, -(-n_cols // _WORD_BITS))
+
+
+def panel_columns(n_valid: int) -> int:
+    """Columns of the kernel's K-major panel scratch: ``n_valid`` rounded
+    up to whole item tiles (the kernel zeroes the tail)."""
+    return -(-max(n_valid, 0) // ITEM_TILE) * ITEM_TILE
 
 
 def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
@@ -181,13 +188,16 @@ def fused_score_topk(proj: torch.Tensor, items: torch.Tensor,
     out_idx = torch.empty((n_users, k), dtype=torch.int32, device=device)
     if n_users:
         lib = load_library()
+        # scratch for the kernel's K-major copy of the panel
+        items_t = torch.empty((proj.shape[1], panel_columns(n_valid)),
+                              dtype=torch.float32, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.polara_fused_score_topk(
-                proj.data_ptr(), items.data_ptr(), seen_bits.data_ptr(),
-                out_vals.data_ptr(), out_idx.data_ptr(), n_users, n_items,
-                proj.shape[1], seen_bits.shape[1], n_valid, k,
-                int(filter_seen), stream)
+                proj.data_ptr(), items.data_ptr(), items_t.data_ptr(),
+                seen_bits.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(),
+                n_users, n_items, proj.shape[1], seen_bits.shape[1], n_valid,
+                k, int(filter_seen), stream)
         if err != 0:
             raise RuntimeError(f"fused_score_topk kernel launch failed "
                                f"with cudaError_t {err}")

@@ -16,6 +16,7 @@ import torch
 
 from polara_tpu_torch.ops.fused_topk import fused_score_topk, pack_seen_bits
 from polara_tpu_torch.ops.topk import PAD_CONST, mask_and_topk
+from polara_tpu_torch.runtime.device import resolve_device
 from polara_tpu_torch.runtime.memory import plan_user_chunks
 
 
@@ -57,8 +58,9 @@ class ChunkedTestData:
               device: Union[str, torch.device, None] = None
               ) -> "ChunkedTestData":
         """``user_rows`` must be sorted ascending and *rebased* to test
-        rows 0..n_users-1 (the data model guarantees both)."""
-        device = torch.device(device or "cpu")
+        rows 0..n_users-1 (the data model guarantees both).  ``device``
+        defaults to the card when one is present."""
+        device = resolve_device(device)
         if chunk_users is None:
             bounds = plan_user_chunks(n_users, n_items,
                                       scores_multiplier=scores_multiplier,

@@ -15,6 +15,8 @@ from typing import Callable, Tuple, Union
 import numpy as np
 import torch
 
+from polara_tpu_torch.runtime.device import resolve_device
+
 Device = Union[str, torch.device, None]
 
 
@@ -106,6 +108,7 @@ class CooMatrix:
                    dtype: torch.dtype = torch.float32,
                    device: Device = None) -> "CooMatrix":
         order = np.argsort(rows, kind="stable")
+        device = resolve_device(device)
         return cls(torch.as_tensor(np.asarray(rows)[order],
                                    dtype=torch.int64).to(device),
                    torch.as_tensor(np.asarray(cols)[order],
@@ -166,8 +169,9 @@ def dense_from_coo(idx: np.ndarray, val: np.ndarray,
                    device: Device = None) -> torch.Tensor:
     """Dense block from COO: numpy ``(nnz, d)`` index arrays accumulate on
     the host in f64 (like the JAX package) and move over in one copy;
-    tensors accumulate on their own device."""
+    tensors accumulate on ``device``."""
     shape = tuple(int(s) for s in shape)
+    device = resolve_device(device)
     if isinstance(idx, np.ndarray) and isinstance(val, np.ndarray):
         flat = np.ravel_multi_index(
             tuple(idx[:, d] for d in range(idx.shape[1])), shape)

@@ -12,14 +12,18 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from polara_tpu_torch.runtime.device import resolve_device
+
 
 def factors_from_jax(factors: Dict[str, Optional[np.ndarray]],
-                     device: Union[str, torch.device] = "cpu",
+                     device: Union[str, torch.device, None] = None,
                      dtype: torch.dtype = torch.float32
                      ) -> Dict[str, Optional[torch.Tensor]]:
     """``{name: array or None}`` -> ``{name: tensor or None}`` on
-    ``device`` in ``dtype`` (entries that are None stay None, like the
-    JAX model's dropped user factors)."""
+    ``device`` (default: the card when one is present, else the CPU) in
+    ``dtype`` (entries that are None stay None, like the JAX model's
+    dropped user factors)."""
+    device = resolve_device(device)
     out: Dict[str, Optional[torch.Tensor]] = {}
     for name, value in factors.items():
         if value is None:

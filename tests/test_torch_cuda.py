@@ -41,6 +41,14 @@ def _case(seed, n_users, n_items, rank, nnz, device):
     (15, 300, 3000, 50, 10, True, None),
     (16, 20, 35, 12, 40, False, 35),          # PAD beyond the catalog
     (17, 64, 1000, 256, 33, False, 900),      # widest rank, masked tail
+    # the tiling's edges: users not a multiple of 64, items not a multiple
+    # of 128 with n_valid below them, rank 1 / 3 / 256, k 1 / 33 / 128
+    (20, 65, 1000, 3, 33, True, 900),
+    (21, 63, 1000, 1, 1, True, 1000),
+    (22, 65, 777, 256, 128, True, 700),
+    (23, 63, 300, 256, 1, False, 250),
+    (24, 129, 1000, 3, 128, True, 999),
+    (25, 64, 128, 1, 33, True, 128),
 ])
 def test_kernel_matches_plain_version(seed, n_users, n_items, rank, k,
                                       filter_seen, n_valid):

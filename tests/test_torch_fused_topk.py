@@ -164,6 +164,43 @@ def test_pack_seen_bits_layout_and_clear():
     assert torch.equal(cleared, want)
 
 
+@pytest.mark.parametrize("n_valid,want", [(0, 0), (1, 128), (128, 128),
+                                          (129, 256), (10_677, 10_752),
+                                          (-5, 0)])
+def test_panel_scratch_covers_whole_tiles(n_valid, want):
+    assert tf.panel_columns(n_valid) == want
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    from polara_tpu_torch.ops._cuda_build import ptxas_report
+    log = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117score_topk_kernelILi1EEEvPKfS2_iPKiPfPiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117score_topk_kernelILi1EEEvPKfS2_iPKiPfPiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122transpose_panel_kernelEPKfPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122transpose_panel_kernelEPKfPfiii
+    8 bytes stack frame, 12 bytes spill stores, 260 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 4224 bytes smem
+"""
+    report = ptxas_report(log)
+    assert report == {
+        "_ZN12_GLOBAL__N_117score_topk_kernelILi1EEEvPKfS2_iPKiPfPiiiiiii":
+            {"spill_stores": 0, "spill_loads": 0, "registers": 80},
+        "_ZN12_GLOBAL__N_122transpose_panel_kernelEPKfPfiii":
+            {"spill_stores": 12, "spill_loads": 260, "registers": 30}}
+    assert ptxas_report("") == {}
+
+
+def test_variant_builds_get_their_own_library():
+    from polara_tpu_torch.ops._cuda_build import library_path
+    plain = library_path()
+    variant = library_path(("POLARA_PHASE_NO_SELECTION",))
+    assert plain == library_path() and variant != plain
+    assert variant.parent == plain.parent
+
+
 def test_cpu_wrapper_does_not_count_launches():
     before = tf.fused_score_topk.launches
     proj, items, rows, cols = _case(10, 8, 100, 4, 50)
