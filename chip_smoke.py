@@ -21,8 +21,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    factors from the Gram's eigendecomposition.  At the main path's own
    inputs: the kernel against its plain version, its time, and the times
    of its measurement variants (``phase_ms``).
-4. Where pandas is installed: ``RecommenderData`` -> ``prepare()`` ->
-   ``SVDModel`` (rank 50) -> ``evaluate()`` at ML-1M geometry.
+4. Cross-validation at ML-1M geometry through the data model:
+   ``run_cv_experiment`` over folds 1..5 with ``topk_test`` (top-10/5)
+   for PureSVD and PureSVD-s (rank 50), MP and item-to-item, at
+   ``test_ratio=0.2``, ``holdout_size=1``.  Gates: each fold's
+   ``prepare()`` took the native holdout path, each SVD model launched
+   the kernel in each fold, MP's fold-1 picks equal a plain stable-sort
+   top-k, every metric finite.
+5. The rank sweep of ``benchmarks/rank_sweep.py`` at ML-10M geometry:
+   ``prepare()`` (``warm_start=False``, ``test_ratio=0.05``,
+   ``holdout_size=1``), then ``find_optimal_svd_rank`` over ranks
+   10..150 by ARHR, cold and warm with a rebuild.  Gates: the native
+   library built and ``prepare()`` took its path, with the native
+   selection equal to pandas' on the first 200k events; at least 15
+   launches in the cold sweep; at ranks 10, 50 and 150 the kernel's
+   picks from zero-padded factors equal the truncated factors' bit for
+   bit; ``fused_ok`` and the triplet residual at rank 150; ScaledSVD
+   launches the kernel and solves the scaled matrix; a Krylov build's
+   residual and HR@10 against the subspace build's; a checkpoint round
+   trip gives identical recommendations.
+
+pandas is required (phases 4 and 5): without it the script exits
+non-zero before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
 kernel (its time at the main path's inputs beside the plain version's,
@@ -30,9 +50,11 @@ its bound: the f32 FMA work at the card's peak from its SM count and
 max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
-of the C entry point, each of which runs the panel transpose and then the
-score kernel), and as the last line ``{"ok": true, "device": {...}}``.  Without
-CUDA, or without the package beside it, it exits non-zero and prints no
+of the C entry point in phase 3, each of which runs the panel transpose
+and then the score kernel, and ``launches_by_path`` those of phases 3-5;
+``sweep_top_rank`` the same fields at the sweep's rank-150 shape), and as
+the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
+pandas, or without the package beside it, it exits non-zero and prints no
 result.
 """
 import importlib.util
@@ -565,39 +587,371 @@ def stage_breakdown(dense, params, head, proj, panel, bits, reps=10):
 
 
 # --------------------------------------------------------------------------
-# phase 4: the data model at ML-1M geometry
+# phases 4 and 5: the data model, cross-validation and the rank sweep
 # --------------------------------------------------------------------------
 
-def data_model_phase(device="cuda"):
+def wall() -> float:
+    """Host clock after the card's queued work is done."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def finite_table(table, undefined=("true_negative",)) -> bool:
+    """Every metric of a consolidated table is finite, except the columns
+    that are undefined without a positivity split (all NaN there)."""
+    for column in table.columns:
+        values = table[column].to_numpy(dtype=np.float64)
+        if column[-1] in undefined and np.isnan(values).all():
+            continue
+        if not np.isfinite(values).all():
+            return False
+    return True
+
+
+def popularity_plain_topk(data, model, k):
+    """Plain picks of the popularity baseline: training counts per item,
+    seen test items at -inf, a stable descending sort."""
+    itemid = data.fields.itemid
+    counts = np.bincount(data.training[itemid].to_numpy(),
+                         minlength=data.get_test_shape()[1])
+    (rows, items, _), (n_users, n_items), _ = model._get_test_data()
+    scores = np.broadcast_to(counts.astype(np.float64),
+                             (n_users, n_items)).copy()
+    scores[rows, items] = -np.inf
+    return np.argsort(-scores, axis=1, kind="stable")[:, :k]
+
+
+def cv_phase(geometry, device="cuda", folds=(1, 2, 3, 4, 5)):
+    """Phase 4: ``run_cv_experiment`` over five folds with ``topk_test`` at
+    top-10/5 for PureSVD, PureSVD-s (rank 50), MP and item-to-item, through
+    the data model.  Returns the table and the measured fields; raises on
+    a failed gate except the launch counts, which the caller checks."""
     from polara_tpu_torch.data import RecommenderData
-    from polara_tpu_torch.datasets import (ML1M_GEOMETRY,
-                                           make_realistic_coo_device)
+    from polara_tpu_torch.datasets import make_realistic_coo_device
     from polara_tpu_torch.datasets.synthetic import events_frame
-    from polara_tpu_torch.models import SVDModel
+    from polara_tpu_torch.evaluation.engine import (run_cv_experiment,
+                                                    topk_test)
+    from polara_tpu_torch.models import (CooccurrenceModel,
+                                         PopularityModel, ScaledSVD,
+                                         SVDModel)
     from polara_tpu_torch.ops.fused_topk import fused_score_topk
 
-    frame = events_frame(*make_realistic_coo_device(**ML1M_GEOMETRY, seed=0,
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
                                                     device=device))
     data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
                            verbose=False)
-    t0 = time.perf_counter()
+    data.test_ratio = 0.2
+    data.holdout_size = 1
+    models = [SVDModel(data, device=device), ScaledSVD(data, device=device),
+              PopularityModel(data, device=device),
+              CooccurrenceModel(data, device=device)]
+    for model in models:
+        model.verbose = False
+    for model in models[:2]:
+        model.rank = RANK
+    out = {"folds": {}}
+    state = {"t": wall()}
+
+    def fold_experiment(models, **kwargs):
+        fold = data.test_fold
+        entered = wall()
+        record = {"holdout_path": data.holdout_path,
+                  "update_and_build_s": entered - state["t"],
+                  "build_s": {m.method: m.training_time[-1]
+                              for m in models if m.training_time}}
+        # each model's recommendations first, counting its launches
+        # (topk_test then slices the cached top-10)
+        record["launches"] = {}
+        for model in models:
+            before = fused_score_topk.launches
+            model._ensure_recommendations()
+            record["launches"][model.method] = (fused_score_topk.launches
+                                                - before)
+        if fold == 1:
+            pop = models[2]
+            plain = popularity_plain_topk(data, pop, TOPK)
+            record["popularity_plain_equal"] = bool(np.array_equal(
+                pop.recommendations[:, :TOPK], plain))
+        scored = wall()
+        table = topk_test(models, **kwargs)
+        state["t"] = wall()
+        record["scoring_s"] = scored - entered
+        record["topk_test_s"] = state["t"] - scored
+        out["folds"][fold] = record
+        return table
+
+    fused_score_topk.launches = 0
+    t0 = wall()
+    table = run_cv_experiment(models, folds=list(folds),
+                              fold_experiment=fold_experiment,
+                              topk_list=[10, 5])
+    out["cv_s"] = wall() - t0
+    out["launches"] = fused_score_topk.launches
+    for fold, record in out["folds"].items():
+        log(f"  fold {fold}: " + json.dumps(record))
+    check(all(r["holdout_path"] == "native" for r in out["folds"].values()),
+          "every fold's prepare() took the native holdout path")
+    check(out["folds"][folds[0]]["popularity_plain_equal"],
+          "MP picks on fold 1 equal the plain stable-sort top-k")
+    check(finite_table(table), "every metric finite")
+    hr10 = table[("relevance", "hr")].xs(10, level="top-n")
+    out["hr10"] = {k: float(v) for k, v in
+                   hr10.groupby(level="model").mean().items()}
+    log(f"  mean HR@10 over folds: {json.dumps(out['hr10'])}")
+    return out
+
+
+def triplet_residual(dense, v, s) -> float:
+    """max over columns of ``‖Aᵀ(A v)/s − s v‖ / s₁``: the residual of the
+    triplet (u = A v / s, s, v) on the side the solve does not fix."""
+    import torch
+    av = dense @ v
+    resid = (dense.T @ av) / s[None, :] - v * s[None, :]
+    return (torch.linalg.norm(resid, dim=0) / s[0]).max().item()
+
+
+def sweep_phase(geometry, device="cuda", ranks=tuple(range(10, 160, 10)),
+                verify_users=VERIFY_USERS):
+    """Phase 5: the rank sweep of ``benchmarks/rank_sweep.py`` at this
+    geometry, through ``find_optimal_svd_rank``, cold then warm with a
+    rebuild; then ScaledSVD, a Krylov build and a checkpoint round trip on
+    the same data.  Raises on a failed gate except the sweep's launch
+    count, which the caller checks."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from polara_tpu_torch import native
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.data.dataset import native_top_positions
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.evaluation.pipelines import (
+        _mask_trailing_columns, evaluate_models, find_optimal_svd_rank)
+    from polara_tpu_torch.models import ScaledSVD, SVDModel
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 fused_score_topk_reference)
+
+    out = {}
+    t0 = wall()
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
+                                                    device=device))
+    out["data_s"] = wall() - t0
+    data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.warm_start = False
+    data.test_ratio = 0.05
+    data.holdout_size = 1
+    t0 = wall()
     data.prepare()
-    prepare_s = time.perf_counter() - t0
+    out["prepare_s"] = wall() - t0
+    out["holdout_path"] = data.holdout_path
+    out["n_holdout"] = int(len(data.test.holdout))
+    log(f"  prepare {out['prepare_s']:.2f} s ({out['holdout_path']} "
+        f"holdout path, {out['n_holdout']} holdout events)")
+    # (a) the native selection against pandas on the frame's head
+    check(native.native_available(),
+          f"native library built ({native.build_error[-200:]!r})")
+    check(out["holdout_path"] == "native",
+          "prepare() took the native holdout path")
+    head = frame.iloc[:200_000]
+    want = head["rating"].groupby(head["userid"], sort=False,
+                                  group_keys=False).nlargest(
+        1, keep="last").index.to_numpy()
+    got = head.index.to_numpy()[native_top_positions(
+        head["userid"].to_numpy(), head["rating"].to_numpy(), 1)]
+    check(np.array_equal(got, want),
+          f"native selection == pandas nlargest on the first {len(head)} "
+          "events, row for row")
+
+    rank_s = {}
+
+    def timed_evaluator(model, target, **kwargs):
+        t = wall()
+        result = evaluate_models(model, target, **kwargs)
+        rank_s[model.rank] = wall() - t
+        return result
+
     model = SVDModel(data, device=device)
     model.verbose = False
-    model.rank = RANK
+    fused_score_topk.launches = 0
+    t0 = wall()
+    best, scores = find_optimal_svd_rank(model, list(ranks), "arhr",
+                                         return_scores=True,
+                                         evaluator=timed_evaluator)
+    out["cold_s"] = wall() - t0
+    out["launches"] = fused_score_topk.launches
+    out["cold_build_s"] = model.training_time[-1]
+    out["cold_rank_s"] = dict(rank_s)
+    out["svd_info"] = model.svd_info
+    model._is_ready = False
+    t0 = wall()
+    best_warm, scores_warm = find_optimal_svd_rank(
+        model, list(ranks), "arhr", return_scores=True,
+        evaluator=timed_evaluator)
+    out["warm_s"] = wall() - t0
+    out["warm_build_s"] = model.training_time[-1]
+    out["warm_rank_s"] = dict(rank_s)
+    out["warm_svd_info"] = model.svd_info
+    out["arhr"] = {int(r): float(v) for r, v in scores.items()}
+    out["best_rank"] = int(best)
+    log(f"  sweep cold {out['cold_s']:.2f} s (build "
+        f"{out['cold_build_s']:.2f} s), warm {out['warm_s']:.2f} s (build "
+        f"{out['warm_build_s']:.2f} s); best rank {best}; tolerance path "
+        f"iterations (block, count): {out['svd_info']['iterations']}, "
+        f"converged {out['svd_info']['converged']}")
+    log(f"  ARHR per rank: {json.dumps(out['arhr'])}")
+    check(all(np.isfinite(v) for v in out["arhr"].values()),
+          "ARHR finite at every rank")
+    check(best_warm == best and np.allclose(scores_warm.values,
+                                            scores.values, atol=1e-3),
+          "the warm sweep repeats the cold one within 1e-3")
+
+    # (c) the kernel: zero-padded factors pick as the truncated ones
+    top = max(ranks)
+    v_top = model.factors[data.fields.itemid].contiguous()
+    plan = model._test_plan
+    chunk = plan.chunks[0]
+    n_items = v_top.shape[0]
+    bits = plan.seen_bits(0, n_items)
+    for r in (10, 50, top):
+        v_pad = _mask_trailing_columns(v_top, r).contiguous()
+        params = {"item_factors": v_pad, "item_panel": v_pad}
+        proj = SVDModel.proj_chunk(params, chunk).contiguous()
+        pad_vals, pad_ids = fused_score_topk(proj, v_pad, bits, TOPK,
+                                             n_valid_cols=n_items,
+                                             return_values=True)
+        tr_vals, tr_ids = fused_score_topk(
+            proj[:, :r].contiguous(), v_pad[:, :r].contiguous(), bits,
+            TOPK, n_valid_cols=n_items, return_values=True)
+        check(torch.equal(pad_ids, tr_ids) and torch.equal(pad_vals,
+                                                           tr_vals),
+              f"rank {r}: padded-to-{top} picks == truncated picks, ids and "
+              "values bit for bit")
+
+    # (d) fused_ok at the top rank over the first test users
+    params = {"item_factors": v_top, "item_panel": v_top}
+    proj = SVDModel.proj_chunk(params, chunk).contiguous()
+    users = min(verify_users, plan.n_users)
+    kv, ki = fused_score_topk(proj[:users].contiguous(), v_top,
+                              bits[:users].contiguous(), TOPK,
+                              n_valid_cols=n_items, return_values=True)
+    pv, pi = fused_score_topk_reference(proj[:users], v_top, bits[:users],
+                                        TOPK, n_valid_cols=n_items,
+                                        return_values=True)
+    s64 = proj[:users].double() @ v_top.double().T
+    s_plain, s_kern = s64.gather(1, pi.long()), s64.gather(1, ki.long())
+    scale = max(s_plain.abs().max().item(), 1e-6)
+    gap = (s_plain - s_kern).abs().max().item() / scale
+    out["fused_max_gap"] = gap
+    out["fused_exact_agreement"] = (ki == pi).float().mean().item()
+    out["max_abs_err"] = (kv - pv).abs().max().item()
+    check(gap < 1e-3, f"rank {top} fused_ok: re-scored gap {gap:.2e} < "
+          f"1e-3 over {users} users (exact agreement "
+          f"{out['fused_exact_agreement']:.4f})")
+
+    # (e) the top-rank build's triplet residual
+    dense = model.get_training_matrix(dense=True)
+    s_top = model.factors["singular_values"]
+    out["triplet_residual"] = triplet_residual(dense, v_top, s_top)
+    check(out["triplet_residual"] < 1e-2, f"rank {top} max triplet "
+          f"residual {out['triplet_residual']:.3e} < 1e-2")
+
+    # the kernel at the sweep's top-rank shape
+    out["kernel"] = sweep_kernel_fields(proj, v_top, bits, n_items)
+
+    # (f) ScaledSVD on the same data
+    scaled = ScaledSVD(data, device=device)
+    scaled.verbose = False
+    scaled.rank = RANK
+    scaled.col_scaling = 0.4
     before = fused_score_topk.launches
-    t0 = time.perf_counter()
-    scores = model.evaluate()
-    evaluate_s = time.perf_counter() - t0
-    launched = fused_score_topk.launches - before
-    check(launched > 0, f"evaluate() launched the kernel ({launched}x)")
-    out = {"prepare_s": prepare_s, "evaluate_s": evaluate_s,
-           "build_s": model.training_time[-1], "launches": launched}
-    for tup in scores:
-        out.update({k: v for k, v in tup._asdict().items() if v is not None})
-    check(all(np.isfinite(x) for x in out.values()), "finite metrics")
+    out["scaled_hr10"] = scaled.evaluate("relevance").hr
+    out["scaled_launches"] = fused_score_topk.launches - before
+    out["scaled_build_s"] = scaled.training_time[-1]
+    out["scaled_svd_info"] = scaled.svd_info
+    check(out["scaled_launches"] > 0,
+          f"ScaledSVD launched the kernel ({out['scaled_launches']}x)")
+    scaled_dense = data._device_matrix_cache[scaled._last_dense_key]
+    out["scaled_triplet_residual"] = triplet_residual(
+        scaled_dense, scaled.factors[data.fields.itemid],
+        scaled.factors["singular_values"])
+    check(out["scaled_triplet_residual"] < 1e-2,
+          f"ScaledSVD triplet residual on the scaled matrix "
+          f"{out['scaled_triplet_residual']:.3e} < 1e-2")
+
+    # (g) a Krylov build against a subspace build at rank 50
+    hr = {}
+    for method in ("subspace", "krylov"):
+        m = SVDModel(data, device=device)
+        m.verbose = False
+        m.rank = RANK
+        m.svd_method = method
+        hr[method] = m.evaluate("relevance").hr
+        out[f"{method}_build_s"] = m.training_time[-1]
+        out[f"{method}_triplet_residual"] = triplet_residual(
+            dense, m.factors[data.fields.itemid], m.factors["singular_values"])
+    out["hr10_subspace"], out["hr10_krylov"] = hr["subspace"], hr["krylov"]
+    check(out["krylov_triplet_residual"] < 1e-2, f"Krylov triplet residual "
+          f"{out['krylov_triplet_residual']:.3e} < 1e-2")
+    check(abs(hr["krylov"] - hr["subspace"]) <= 1e-3,
+          f"Krylov HR@10 {hr['krylov']:.5f} within 1e-3 of the subspace "
+          f"build's {hr['subspace']:.5f}")
+
+    # (h) save -> load into a fresh model; deterministic scatters, so
+    # both scorings sum every projection in the same order
+    build_dir = Path(__file__).resolve().parent / "polara_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = str(Path(tmp) / "sweep_factors.npz")
+        model.save(path)
+        fresh = SVDModel(data, device=device)
+        fresh.verbose = False
+        meta = fresh.load(path)
+    same_factors = all(
+        (a is None and b is None) or torch.equal(a, b)
+        for a, b in ((model.factors[k], fresh.factors[k])
+                     for k in model.factors))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model._recommendations = None
+        same_recs = np.array_equal(model.recommendations,
+                                   fresh.recommendations)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(same_factors and meta.get("rank") == top and same_recs,
+          "save -> load into a fresh model: identical factors and "
+          "recommendations")
     return out
+
+
+def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
+    """The kernel at the sweep's top-rank shape: its time beside the plain
+    version's and cuBLAS's scores alone, its bound, and the blocks per SM
+    its shared memory allows (the kernel takes
+    4 * (rank * (64 + 128) + 64 * 132) bytes a block)."""
+    import torch
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 fused_score_topk_reference)
+    n_users, rank = proj.shape
+    fields = {"users": n_users, "items": n_items, "rank": rank}
+    if proj.is_cuda:
+        fields["ms"] = time_ms(lambda: fused_score_topk(
+            proj, panel, bits, TOPK, n_valid_cols=n_items), reps)
+        fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
+            proj, panel, bits, TOPK, n_valid_cols=n_items), 3)
+        fields["library_ms"] = time_ms(lambda: proj @ panel.T, reps)
+        props = torch.cuda.get_device_properties(proj.device)
+        per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+        smem = 4 * (rank * (64 + 128) + 64 * 132)
+        fields["smem_bytes"] = smem
+        fields["blocks_per_sm_by_smem"] = per_sm // (smem + 1024)
+    fields["flop"] = 2 * n_users * n_items * rank
+    fields["bytes"] = 4 * (proj.numel() + n_items * rank
+                           + n_users * -(-n_items // 32) + 2 * n_users * TOPK)
+    return fields
 
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -652,7 +1006,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from polara_tpu_torch.datasets import ML10M_GEOMETRY
+    if importlib.util.find_spec("pandas") is None:
+        print("chip_smoke: pandas is missing; the data-model phases (4, 5) "
+              "need it", file=sys.stderr)
+        return 1
+    from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -663,35 +1021,63 @@ def main() -> int:
     log(f"gpu: {card}")
 
     log("phase 1: build the kernels")
+    t0 = time.perf_counter()
     build_s, ptxas = build_phase()
+    log(f"  phase 1: {time.perf_counter() - t0:.2f} s")
 
     log("phase 2: kernel vs plain version")
+    t0 = time.perf_counter()
     kernel_phase()
+    log(f"  phase 2: {time.perf_counter() - t0:.2f} s")
 
     log("phase 3: PureSVD rank 50 at ML-10M geometry")
+    t0 = time.perf_counter()
     main = main_path(ML10M_GEOMETRY)
     check(main["launches"] > 0,
           f"the main path launched the kernel ({main['launches']}x)")
+    log(f"  phase 3: {time.perf_counter() - t0:.2f} s")
     log("  " + json.dumps({"main_path": main}))
 
-    has_pandas = importlib.util.find_spec("pandas") is not None
-    log(f"phase 4: data model at ML-1M geometry (pandas "
-        f"{'present' if has_pandas else 'missing: phase skipped'})")
-    if has_pandas:
-        log("  " + json.dumps({"data_model": data_model_phase()}))
+    log("phase 4: cross-validation at ML-1M geometry through the data "
+        "model")
+    t0 = time.perf_counter()
+    cv = cv_phase(ML1M_GEOMETRY)
+    for fold, record in cv["folds"].items():
+        for method in ("PureSVD", "PureSVD-s"):
+            check(record["launches"][method] > 0,
+                  f"fold {fold}: {method} launched the kernel "
+                  f"({record['launches'][method]}x)")
+    log(f"  phase 4: {time.perf_counter() - t0:.2f} s")
+    log("  " + json.dumps({"cv": cv}))
+
+    log("phase 5: rank sweep 10..150 at ML-10M geometry")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sweep = sweep_phase(ML10M_GEOMETRY)
+    check(sweep["launches"] >= 15,
+          f"the cold sweep launched the kernel {sweep['launches']}x (>= 15)")
+    log(f"  phase 5: {time.perf_counter() - t0:.2f} s")
+    log("  " + json.dumps({"sweep": sweep}))
 
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
+    top = dict(sweep["kernel"])
+    top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
+                                                top.pop("bytes"))
+    top["max_abs_err"] = sweep["max_abs_err"]
     log(json.dumps({"kernels": [{
         "name": "fused_score_topk", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": main["launches"], "max_abs_err": main["max_abs_err"],
+        "launches": main["launches"],
+        "launches_by_path": {"main": main["launches"], "cv": cv["launches"],
+                             "sweep": sweep["launches"]},
+        "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,
         "library_ms": main["stage_ms"]["cublas_scores_only"],
         "topk_ms": main["stage_ms"]["topk_baseline"],
         "phase_ms": main["phase_ms"],
         "clocks_under_load": main["kernel_clocks"],
-        "ptxas": ptxas}], "build_s": build_s}))
+        "ptxas": ptxas, "sweep_top_rank": top}], "build_s": build_s}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

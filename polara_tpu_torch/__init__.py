@@ -13,6 +13,10 @@ _LAZY = {
     "RecommenderData": "polara_tpu_torch.data",
     "RecommenderModel": "polara_tpu_torch.models",
     "SVDModel": "polara_tpu_torch.models",
+    "ScaledSVD": "polara_tpu_torch.models",
+    "PopularityModel": "polara_tpu_torch.models",
+    "RandomModel": "polara_tpu_torch.models",
+    "CooccurrenceModel": "polara_tpu_torch.models",
 }
 
 __all__ = sorted(_LAZY)

@@ -11,10 +11,9 @@ models.
 The device boundary sits at the export methods: :meth:`to_coo` /
 :meth:`test_to_coo` produce numpy COO data which the ops layer turns into
 device tensors.  Everything in this module is deliberately CPU/pandas.
-
-Deviation from the JAX package: holdout sampling always takes the pandas
-path (the JAX package switches to a native group-top-k above 100k events;
-both select the same rows).
+Top-rated holdout selection over 100k events and more runs through the
+native per-group top-k (:mod:`polara_tpu_torch.native`), as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import numpy as np
 import pandas as pd
 
 from polara_tpu_torch import config as defaults
+from polara_tpu_torch import native
 from polara_tpu_torch.data.events import EventNotifier
 from polara_tpu_torch.data.scenario import (UpdateRule, plan_update,
                                             validate_config)
@@ -56,6 +56,25 @@ def build_entity_index(data: pd.DataFrame, col: str, sort: bool = True,
         data[col] = codes
         return mapping
     return codes, mapping
+
+
+# the native holdout path takes over from pandas at this many events
+NATIVE_HOLDOUT_MIN_EVENTS = 100_000
+
+
+def native_top_positions(groups: np.ndarray, values: np.ndarray,
+                         size: int) -> np.ndarray:
+    """Positions of the ``size`` largest ``values`` of every group, in the
+    order of pandas ``groupby(sort=False).nlargest(size, keep="last")``:
+    groups by first appearance, then value descending, later first among
+    ties.  Runs :func:`polara_tpu_torch.native.group_top_k`."""
+    codes, _ = pd.factorize(groups, sort=False)
+    values = np.asarray(values, dtype=np.float64)
+    picked, _ = native.group_top_k(
+        codes.astype(np.int32), values,
+        int(codes.max()) + 1 if len(codes) else 0, int(size))
+    order = np.lexsort((-picked, -values[picked], codes[picked]))
+    return picked[order]
 
 
 def _config_property(name: str):
@@ -122,6 +141,7 @@ class RecommenderData:
         self._state: Optional[int] = None
         self._last_update_rule: Optional[UpdateRule] = None
         self._test_split = None
+        self.holdout_path: Optional[str] = None   # "native" or "pandas"
         self._test: Optional[TestData] = None
         self._training: Optional[pd.DataFrame] = None
 
@@ -400,6 +420,22 @@ class RecommenderData:
 
         group_id = group_id or self.fields.userid
         size = self._holdout_size
+
+        # hot path at scale: the C++ per-group top-k replaces pandas
+        # groupby-nlargest (identical keep-last selection); RNG-dependent
+        # modes keep the pandas path.  ``holdout_path`` records the route.
+        self.holdout_path = "pandas"
+        if (not at_random and not self._negative_prediction
+                and not self._permute_tops and size >= 1
+                and len(selector) >= NATIVE_HOLDOUT_MIN_EVENTS
+                and not np.isnan(selector.values.astype(np.float64,
+                                                        copy=False)).any()
+                and native.native_available()):
+            self.holdout_path = "native"
+            groups = self._data.loc[selector.index, group_id]
+            picked = native_top_positions(groups.to_numpy(),
+                                          selector.to_numpy(), int(size))
+            return self._data.loc[selector.index[picked]]
 
         grouper = selector.groupby(self._data[group_id], sort=False,
                                    group_keys=False)

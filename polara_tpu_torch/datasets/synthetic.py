@@ -93,7 +93,7 @@ def make_realistic_coo_device(n_users: int, n_items: int, n_events: int,
                               seed: int = 0, row_chunk: int = 8192,
                               device: Union[str, torch.device, None] = None):
     """Calibrated interaction log generated on ``device`` (default: the
-    card when one is present, else the CPU).
+    card; without one, name the CPU).
 
     Per-user event counts come from ``numpy.random.RandomState(seed)``
     exactly as in the JAX package; factors, Gumbel keys and rating noise
@@ -106,7 +106,7 @@ def make_realistic_coo_device(n_users: int, n_items: int, n_events: int,
     if n_events > n_users * max_per_user:
         raise ValueError("n_events too dense for without-replacement "
                          "sampling")
-    device = resolve_device(device)
+    device = resolve_device(device, "make_realistic_coo_device")
     rs = np.random.RandomState(seed)
     item_w = 1.0 / np.arange(1, n_items + 1) ** popularity_skew
     item_w /= item_w.sum()

@@ -220,3 +220,125 @@ def compute_metrics(recommendations, holdout, key: str, target: str,
     names = list(out)
     stacked = torch.stack([out[name] for name in names]).cpu().numpy()
     return {name: float(value) for name, value in zip(names, stacked)}
+
+
+def get_experience_scores(recommendations, total: int) -> Experience:
+    """Catalog coverage of a recommendation panel (padding excluded)."""
+    if isinstance(recommendations, torch.Tensor):
+        recommendations = recommendations.cpu().numpy()
+    recs = np.asarray(recommendations)
+    unique = np.unique(recs[recs >= 0])
+    return Experience(coverage=len(unique) / total)
+
+
+def convert_scores_to_series(metrics, name: str = "scores"):
+    """Namedtuple list -> pandas Series (reference ``evaluation.py:256``)."""
+    import pandas as pd
+
+    if not isinstance(metrics, list):
+        metrics = [metrics]
+    records = []
+    for tup in metrics:
+        records.extend(tup._asdict().items())
+    frame = pd.DataFrame.from_records(records, columns=["metric", name])
+    return frame.set_index("metric")[name]
+
+
+# --------------------------------------------------------------------------
+# Reference-style per-family accessors (evaluation.py:101-253): each is a
+# view over the one-pass metric engine, taking the raw
+# (recommendations, holdout) pair.
+# --------------------------------------------------------------------------
+
+# One-entry memo over the metric pass: reference-style call sequences
+# (``get_ranking_scores`` then ``get_relevance_scores`` on the same recs)
+# pay one pass, not one per family.  Keyed on argument identity (strong
+# refs retained, so ids cannot be recycled).
+_family_memo: dict = {}
+
+
+def _memo_token(v):
+    """Hash/compare-safe token: plain scalars by value, everything else
+    (pandas Series, lists, arrays) by identity."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    return id(v)
+
+
+def _array_token(v):
+    """Identity plus a 64-element strided content sample for host arrays
+    (catches in-place mutation between calls).  Tensors count by identity:
+    sampling one on the card would cost a device->host sync."""
+    if isinstance(v, np.ndarray) and v.size:
+        idx = np.linspace(0, v.size - 1, num=min(64, v.size),
+                          dtype=np.int64)
+        return (id(v), v.shape, v.flat[idx].tobytes())
+    return id(v)
+
+
+def _family(recommendations, holdout, key, target, **kwargs):
+    arrays = {k: v for k, v in kwargs.items()
+              if isinstance(v, (np.ndarray, torch.Tensor))}
+    others = {k: v for k, v in kwargs.items() if k not in arrays}
+    scalars = tuple(sorted((k, _memo_token(v)) for k, v in others.items()))
+    memo_key = ((_array_token(recommendations), id(holdout))
+                + tuple(_array_token(v) for _, v in sorted(arrays.items())),
+                key, target, tuple(sorted(arrays)), scalars)
+    if _family_memo.get("key") == memo_key:
+        return _family_memo["value"]
+    value = compute_metrics(recommendations, holdout, key, target, **kwargs)
+    _family_memo.update(
+        key=memo_key, value=value,
+        refs=(recommendations, holdout, tuple(arrays.values()),
+              tuple(others.values())))
+    return value
+
+
+def get_hr_score(recommendations, holdout, key, target, **kwargs):
+    return SimpleRelevance(hr=_family(recommendations, holdout, key,
+                                      target, **kwargs)["hr"])
+
+
+def get_rr_scores(recommendations, holdout, key, target, **kwargs):
+    stats = _family(recommendations, holdout, key, target, **kwargs)
+    return SimpleRanking(arhr=stats["arhr"], mrr=stats["mrr"])
+
+
+def get_arhr_score(recommendations, holdout, key, target, **kwargs):
+    return _family(recommendations, holdout, key, target,
+                   **kwargs)["arhr"]
+
+
+def get_mrr_score(recommendations, holdout, key, target, **kwargs):
+    return _family(recommendations, holdout, key, target, **kwargs)["mrr"]
+
+
+def get_map_score(recommendations, holdout, key, target, **kwargs):
+    return _family(recommendations, holdout, key, target, **kwargs)["map"]
+
+
+def get_ndcg_score(recommendations, holdout, key, target, **kwargs):
+    return _family(recommendations, holdout, key, target, **kwargs)["ndcg"]
+
+
+def get_ndcl_score(recommendations, holdout, key, target, **kwargs):
+    return _family(recommendations, holdout, key, target, **kwargs)["ndcl"]
+
+
+def get_ranking_scores(recommendations, holdout, key, target, **kwargs):
+    stats = _family(recommendations, holdout, key, target, **kwargs)
+    return Ranking(ndcg=stats["ndcg"], ndcl=stats["ndcl"],
+                   map=stats["map"], arhr=stats["arhr"])
+
+
+def get_relevance_scores(recommendations, holdout, key, target, **kwargs):
+    stats = _family(recommendations, holdout, key, target, **kwargs)
+    return Relevance(precision=stats["precision"], recall=stats["recall"],
+                     fallout=stats["fallout"], specifity=stats["specifity"],
+                     miss_rate=stats["miss_rate"])
+
+
+def get_hits(recommendations, holdout, key, target, **kwargs):
+    stats = _family(recommendations, holdout, key, target, **kwargs)
+    return Hits(true_positive=stats["tp"], false_positive=stats["fp"],
+                true_negative=stats["tn"], false_negative=stats["fn"])

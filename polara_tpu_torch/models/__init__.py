@@ -1,4 +1,9 @@
 from polara_tpu_torch.models.base import EmbeddingsMixin, RecommenderModel
-from polara_tpu_torch.models.svd import SVDModel
+from polara_tpu_torch.models.baselines import (CooccurrenceModel,
+                                               PopularityModel, RandomModel)
+from polara_tpu_torch.models.svd import (ScaledMatrixMixin, ScaledSVD,
+                                         SVDModel)
 
-__all__ = ["RecommenderModel", "EmbeddingsMixin", "SVDModel"]
+__all__ = ["RecommenderModel", "EmbeddingsMixin", "PopularityModel",
+           "RandomModel", "CooccurrenceModel", "SVDModel", "ScaledSVD",
+           "ScaledMatrixMixin"]

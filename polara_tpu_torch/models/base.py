@@ -10,14 +10,14 @@ Counterpart of :class:`polara_tpu.models.base.RecommenderModel` (reference
 * the base class owns the chunked scoring loop
   (:mod:`polara_tpu_torch.ops.scoring`) and ``evaluate()``.
 
-``device`` (default: CUDA when available, else the CPU) is where the
+``device`` (default: the card; without one, name the CPU) is where the
 training block, the factors and the scoring run.  This module imports no
 pandas; it reads the data model's frames only through their methods.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +47,9 @@ def _flush_before_build(build_func):
 
 
 class RecommenderModel:
+    _config = ("topk", "filter_seen", "switch_positive",
+               "feedback_threshold", "verify_integrity")
+
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
         if "build" in cls.__dict__:
@@ -55,7 +58,7 @@ class RecommenderModel:
     def __init__(self, recommender_data, feedback_threshold=None,
                  device: Union[str, torch.device, None] = None):
         self.data = recommender_data
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, type(self).__name__)
         self._recommendations = None
         self._test_plan: Optional[ChunkedTestData] = None
         self._scoring_device_output = False
@@ -152,6 +155,9 @@ class RecommenderModel:
             self._filter_seen = new_value
             self._refresh_model()
 
+    def get_base_configuration(self) -> Dict[str, Any]:
+        return {attr: getattr(self, attr) for attr in self._config}
+
     # --- training-data access -----------------------------------------------
 
     def build(self):
@@ -197,6 +203,25 @@ class RecommenderModel:
                                      device=self.device)
         cache[cache_key] = matrix
         return matrix
+
+    def get_test_matrix(self, user_slice: Optional[Tuple[int, int]] = None
+                        ) -> Tuple[torch.Tensor, np.ndarray]:
+        """Dense profile matrix of the test users on the model's device
+        (reference ``models.py:180-211`` returns the user-sliced CSR).
+
+        Returns ``(profiles, test_users)`` where row i of ``profiles``
+        holds the interactions of ``test_users[i]``."""
+        (user_rows, item_idx, feedback), test_shape, test_users = \
+            self._get_test_data()
+        start, stop = (user_slice if user_slice is not None
+                       else (0, test_shape[0]))
+        sel = (user_rows >= start) & (user_rows < stop)
+        profiles = np.zeros((stop - start, test_shape[1]))
+        profiles[user_rows[sel] - start, item_idx[sel]] = \
+            np.asarray(feedback, dtype=np.float64)[sel]
+        return (torch.as_tensor(profiles).to(device=self.device,
+                                             dtype=self.compute_dtype),
+                test_users[start:stop])
 
     # --- test-data plumbing --------------------------------------------------
 
@@ -303,6 +328,77 @@ class RecommenderModel:
                            n_valid_cols=plan.n_items,
                            on_device=self._scoring_device_output)
 
+    # --- single-user convenience ---------------------------------------------
+
+    def _user_scores(self, i: int):
+        if not self._is_ready:
+            if self.verbose:
+                print(f"{self.method} model is not ready. Rebuilding.")
+            self.build()
+        (user_rows, item_idx, feedback), test_shape, test_users = \
+            self._get_test_data()
+        if not self.data.warm_start:
+            matches = np.where(test_users == i)[0]
+            if len(matches) != 1:
+                raise KeyError(f"user {i} is not among test users")
+            i = int(matches[0])
+        sel = user_rows == i
+        plan = ChunkedTestData.build(
+            np.zeros(int(sel.sum()), dtype=np.int64), item_idx[sel],
+            np.asarray(feedback, dtype=np.float64)[sel],
+            n_users=1, n_items=test_shape[1],
+            scores_multiplier=self.scores_multiplier, device=self.device)
+        params = dict(self.score_params())
+        params["test_users"] = torch.as_tensor([i], device=self.device)
+        scores = type(self).score_chunk(params, plan.chunks[0])
+        seen = (np.zeros(int(sel.sum()), dtype=np.int64), item_idx[sel])
+        return scores.cpu().numpy(), seen
+
+    def _make_user(self, user_info):
+        """A one-user test frame from an item list (feedback: the top
+        training value) or an ``{item: feedback}`` dict."""
+        import pandas as pd
+
+        userid, itemid, feedback = self.data.fields
+        if isinstance(user_info, dict):
+            items_data, feedback_data = zip(*user_info.items())
+            feedback_frame = {feedback: list(feedback_data)}
+        elif isinstance(user_info, (list, tuple, set, np.ndarray)):
+            items_data = list(user_info)
+            feedback_frame = {}
+            if feedback is not None:
+                top_value = self.data.training[feedback].max()
+                feedback_frame = {feedback: [top_value] * len(items_data)}
+        else:
+            raise ValueError("Unrecognized input for user_info")
+        item_index = self.data.get_entity_index(itemid)
+        internal = item_index.set_index("old").loc[list(items_data),
+                                                   "new"].values
+        frame = {userid: [0] * len(internal), itemid: internal}
+        frame.update(feedback_frame)
+        return pd.DataFrame(frame)
+
+    def show_recommendations(self, user_info, topk: Optional[int] = None):
+        """Top items (original ids) and the seen items of one test user
+        (by id) or of an ad-hoc profile (item list or dict)."""
+        from polara_tpu_torch.data.dataset import TestData
+        if isinstance(user_info, (int, np.integer)):
+            scores, seen = self._user_scores(int(user_info))
+        else:
+            saved = self.data._test
+            try:
+                self.data._test = TestData(self._make_user(user_info), None)
+                scores, seen = self._user_scores(0)
+            finally:
+                self.data._test = saved
+        k = topk if topk is not None else self.topk
+        order = np.argsort(-scores[0])[:k]
+        item_index = self.data.get_entity_index(self.data.fields.itemid)
+        back = item_index.set_index("new")
+        top_recs = back.loc[order, "old"].values
+        seen_items = back.loc[seen[1], "old"].values
+        return top_recs, seen_items
+
     # --- evaluation -----------------------------------------------------------
 
     def evaluate(self, metric_type="all", topk: Optional[int] = None,
@@ -386,6 +482,38 @@ class RecommenderModel:
         if not scores:
             raise ValueError(f"Unknown metric types: {metric_type}")
         return scores[0] if len(scores) == 1 else scores
+
+    # --- persistence ----------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist trained factors (+ method metadata) to an npz artifact
+        that either package loads (see
+        :mod:`polara_tpu_torch.runtime.checkpoint`)."""
+        from polara_tpu_torch.runtime.checkpoint import save_factors
+        factors = getattr(self, "factors", None)
+        if not factors:
+            raise ValueError(f"{self.method} has no trained factors to "
+                             "save; build() first")
+        meta = {"method": self.method, "class": type(self).__name__}
+        rank = getattr(self, "rank", None)
+        if isinstance(rank, (int, float)):
+            meta["rank"] = int(rank)
+        save_factors(path, factors, meta)
+
+    def load(self, path: str) -> Dict[str, Any]:
+        """Restore factors saved by :meth:`save` (by either package) onto
+        the model's device; the model becomes ready without retraining
+        (rank truncation still applies on top)."""
+        from polara_tpu_torch.runtime.checkpoint import load_factors
+        factors, meta = load_factors(path, device=self.device)
+        self.factors = factors
+        self._recommendations = None
+        self._test_plan = None
+        self._is_ready = True
+        # sync the rank attribute with what was loaded
+        if "rank" in meta and hasattr(self, "_rank"):
+            self._rank = int(meta["rank"])
+        return meta
 
     # --- invariants -----------------------------------------------------------
 

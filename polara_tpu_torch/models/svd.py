@@ -1,11 +1,12 @@
-"""PureSVD on one device.
+"""Truncated-SVD model family on one device: PureSVD and the EigenRec-style
+ScaledSVD.
 
-Counterpart of :class:`polara_tpu.models.svd.SVDModel` (reference
+Counterpart of :mod:`polara_tpu.models.svd` (reference
 ``polara/recommender/models.py:800-898``): randomized subspace iteration
-(:mod:`polara_tpu_torch.ops.rsvd`) over the dense training block (or its
-COO operator past the memory budget), and scoring as ``R_test · V · Vᵀ``
-with ``proj = R_test · V`` gathered per chunk through ``index_add_``.
-ScaledSVD, the Krylov solver and the streaming tiers are not ported yet.
+or block Krylov (:mod:`polara_tpu_torch.ops.rsvd`) over the dense training
+block (or its COO operator past the memory budget), and scoring as
+``R_test · V · Vᵀ`` with ``proj = R_test · V`` gathered per chunk through
+``index_add_``.  The streaming tiers are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import torch
 
 from polara_tpu_torch import config as defaults
 from polara_tpu_torch.models.base import RecommenderModel
-from polara_tpu_torch.ops.rsvd import randomized_svd
+from polara_tpu_torch.ops.rsvd import randomized_svd, randomized_svd_krylov
 from polara_tpu_torch.ops.scoring import TestChunk
-from polara_tpu_torch.ops.sparse import (MatmulOperator, dense_operator,
+from polara_tpu_torch.ops.sparse import (CooMatrix, MatmulOperator,
+                                         dense_operator,
                                          dense_power_operator)
 from polara_tpu_torch.runtime.timing import track_time
 
@@ -36,10 +38,17 @@ class SVDModel(RecommenderModel):
         self.svd_iters = 8
         self.svd_oversample: Optional[int] = None
         self.seed: Optional[int] = 0
+        # "subspace" (tolerance-controlled power iteration with block
+        # auto-escalation, the default) or "krylov" (block-Krylov
+        # Rayleigh-Ritz at depth ``svd_iters // 2``; no stopping test, so
+        # ``svd_tol`` applies to the subspace path only)
+        self.svd_method = "subspace"
         # optional low-precision dtype (e.g. torch.bfloat16) for the
         # bandwidth-bound power iterations; the Rayleigh-Ritz projection
         # stays full-precision (see ops.sparse.dense_power_operator)
         self.svd_power_dtype: Optional[torch.dtype] = None
+        # the subspace solver's iteration record of the last build
+        self.svd_info: dict = {}
 
     @property
     def rank(self) -> int:
@@ -65,6 +74,37 @@ class SVDModel(RecommenderModel):
             self.factors = dict(**self.factors)
             self.factors[entity] = factor[..., :rank]
 
+    def _dense_operands(self, matrix: CooMatrix):
+        """The dense block (and its power operator) for this model's
+        scaling, cached on the data object.
+
+        The unscaled block is the plain dense training matrix, shared with
+        every model on the data; a scaled block is cached under
+        ``("svd_dense", device, signature)``.  When this model's key
+        changes, only its own previous entries (block and power operator)
+        are evicted, so a ScaledSVD sweep never accumulates ~GB blocks and
+        never drops a sibling's.  (The signature is one element of the key,
+        so the unscaled key prefixes no scaled one.)"""
+        cache = self.data.__dict__.setdefault("_device_matrix_cache", {})
+        key = ("svd_dense", self.device, self._scaling_signature())
+        if key != getattr(self, "_last_dense_key", None):
+            self._evict_dense_entries(cache)
+            self._last_dense_key = key
+        if self._scaling_signature() == ():
+            dense = self.get_training_matrix(dense=True)
+        else:
+            dense = cache.get(key)
+            if dense is None:
+                dense = cache[key] = matrix.to_dense()
+        power_op = None
+        if self.svd_power_dtype is not None:
+            lo_key = key + ("power", self.svd_power_dtype)
+            power_op = cache.get(lo_key)
+            if power_op is None:
+                power_op = cache[lo_key] = dense_power_operator(
+                    dense, self.svd_power_dtype)
+        return dense, power_op
+
     def build(self, operator: Optional[MatmulOperator] = None,
               return_factors: str = "vh"):
         power_op = None
@@ -76,27 +116,25 @@ class SVDModel(RecommenderModel):
             n_rows, n_cols = matrix.shape
             itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
             if n_rows * n_cols * itemsize <= budget:
-                # the dense block is shared with every model on this data
-                dense = self.get_training_matrix(dense=True)
+                dense, power_op = self._dense_operands(matrix)
                 svd_matrix = dense_operator(dense)
-                if self.svd_power_dtype is not None:
-                    cache = self.data.__dict__.setdefault(
-                        "_device_matrix_cache", {})
-                    key = ("svd_power", self.svd_power_dtype, self.device)
-                    power_op = cache.get(key)
-                    if power_op is None:
-                        power_op = dense_power_operator(
-                            dense, self.svd_power_dtype)
-                        cache[key] = power_op
             else:
                 svd_matrix = matrix.operator()
 
+        self.svd_info = {}
         with track_time(self.training_time, verbose=self.verbose,
                         model=self.method):
-            result = randomized_svd(
-                svd_matrix, self.rank, oversample=self.svd_oversample,
-                n_iter=self.svd_iters, tol=self.svd_tol, seed=self.seed,
-                power_operator=power_op)
+            if self.svd_method == "krylov":
+                result = randomized_svd_krylov(
+                    svd_matrix, self.rank,
+                    depth=max(2, self.svd_iters // 2),
+                    oversample=self.svd_oversample, seed=self.seed,
+                    power_operator=power_op)
+            else:
+                result = randomized_svd(
+                    svd_matrix, self.rank, oversample=self.svd_oversample,
+                    n_iter=self.svd_iters, tol=self.svd_tol, seed=self.seed,
+                    power_operator=power_op, info=self.svd_info)
         self._store_factors(result, return_factors)
 
     def _store_factors(self, result, return_factors: str) -> None:
@@ -104,6 +142,21 @@ class SVDModel(RecommenderModel):
         self.factors[userid] = result.u if "u" in return_factors else None
         self.factors[itemid] = result.v
         self.factors["singular_values"] = result.s
+
+    def _scaling_signature(self) -> tuple:
+        """Cache-key part of the dense training block (ScaledMatrixMixin
+        adds its scaling exponents)."""
+        return ()
+
+    def _evict_dense_entries(self, cache: dict) -> None:
+        """Drop this model's previously cached dense block and the power
+        operator derived from it."""
+        last = getattr(self, "_last_dense_key", None)
+        if last is None:
+            return
+        for stale in [k for k in cache
+                      if isinstance(k, tuple) and k[:len(last)] == last]:
+            del cache[stale]
 
     def score_params(self) -> dict:
         v = self.factors[self.data.fields.itemid]
@@ -123,3 +176,74 @@ class SVDModel(RecommenderModel):
     @staticmethod
     def score_chunk(params: dict, chunk: TestChunk) -> torch.Tensor:
         return SVDModel.proj_chunk(params, chunk) @ params["item_panel"].T
+
+
+class ScaledMatrixMixin:
+    """EigenRec-style popularity rescaling of the rating matrix
+    (reference ``models.py:864-895`` + ``preprocessing/matrices.py:71-93``):
+    column j is scaled by ``nnz_j^((d-1)/2)`` with d = col_scaling (default
+    0.4 damps popular items), rows likewise."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._col_scaling = 0.4
+        self._row_scaling = 1
+        self.method = f"{self.method}-s"
+
+    @property
+    def col_scaling(self):
+        return self._col_scaling
+
+    @col_scaling.setter
+    def col_scaling(self, new_value):
+        if new_value != self._col_scaling:
+            self._col_scaling = new_value
+            self._recommendations = None
+
+    @property
+    def row_scaling(self):
+        return self._row_scaling
+
+    @row_scaling.setter
+    def row_scaling(self, new_value):
+        if new_value != self._row_scaling:
+            self._row_scaling = new_value
+            self._recommendations = None
+
+    def get_training_matrix(self, *args, **kwargs):
+        matrix = super().get_training_matrix(*args, **kwargs)
+        if not isinstance(matrix, CooMatrix):
+            raise TypeError("scaled models need the COO training matrix")
+        return rescale_coo(rescale_coo(matrix, self._row_scaling, axis=1),
+                           self._col_scaling, axis=0)
+
+    def _scaling_signature(self) -> tuple:
+        return (float(self._row_scaling), float(self._col_scaling))
+
+
+def rescale_coo(matrix: CooMatrix, scaling: float, axis: int) -> CooMatrix:
+    """Scale rows (axis=1) or columns (axis=0) by the binary Euclidean norm
+    (sqrt of the nnz count) raised to ``scaling - 1``.
+
+    As in the JAX package's ``_scale_vals`` the norm and the exponent are
+    in the values' dtype; the power itself is taken in f64 and rounded
+    once, so each factor is the correctly rounded value on any device.
+    XLA's f32 ``pow`` is 1 ulp off that for about 0.07% of counts (first
+    at count 189 for ``scaling=0.4``), where the two packages' factors
+    differ by that ulp."""
+    if scaling == 1:
+        return matrix
+    if axis == 1:
+        norms, idx = torch.sqrt(matrix.row_nnz()), matrix.rows
+    else:
+        norms, idx = torch.sqrt(matrix.col_nnz()), matrix.cols
+    safe = torch.where(norms > 0, norms, 1.0)
+    exponent = torch.tensor(float(scaling) - 1.0,
+                            dtype=matrix.vals.dtype).item()
+    factors = torch.pow(safe.double(), exponent).to(matrix.vals.dtype)
+    return CooMatrix(matrix.rows, matrix.cols, matrix.vals * factors[idx],
+                     matrix.shape)
+
+
+class ScaledSVD(ScaledMatrixMixin, SVDModel):
+    """PureSVD-s, a.k.a. EigenRec."""

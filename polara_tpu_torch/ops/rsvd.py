@@ -7,6 +7,8 @@ re-orthogonalization, and a final Rayleigh–Ritz projection.  PyTorch runs
 eagerly, so each stage is plain tensor code; the dense products go to
 cuBLAS and the small factorizations to cuSOLVER on CUDA.
 
+:func:`randomized_svd_krylov` is the block-Krylov alternative.
+
 Convention parity: singular values descending, factors ``(u, s, v)`` with
 ``v`` of shape (n, k).  The random start comes from a ``torch.Generator``,
 a different stream from the JAX package's, so factors agree with it in
@@ -65,20 +67,20 @@ def _power_step(op: MatmulOperator, q: torch.Tensor
 
 
 def _power_until(op: MatmulOperator, q: torch.Tensor, k: int, tol: float,
-                 max_iter: int) -> Tuple[torch.Tensor, bool]:
+                 max_iter: int) -> Tuple[torch.Tensor, bool, int]:
     """Power iterations until the top-k singular estimates are relatively
     stable below ``tol`` (at most ``max_iter``).  Each convergence test is
-    one host sync."""
+    one host sync.  Returns ``(q, converged, iterations)``."""
     s_prev = torch.full((k,), torch.inf, dtype=q.dtype, device=q.device)
-    for _ in range(max_iter):
+    for it in range(1, max_iter + 1):
         q, s_est = _power_step(op, q)
         s_top = s_est[:k]
         denom = torch.clamp(torch.abs(s_top), min=1e-30)
         rel = torch.max(torch.abs(s_top - s_prev) / denom)
         s_prev = s_top
         if bool(rel < tol):
-            return q, True
-    return q, False
+            return q, True, it
+    return q, False, max_iter
 
 
 def _finalize(op: MatmulOperator, q: torch.Tensor) -> SvdResult:
@@ -113,7 +115,8 @@ def randomized_svd(a: Union[torch.Tensor, MatmulOperator], k: int,
                    dtype: Optional[torch.dtype] = None,
                    max_escalations: int = 2,
                    power_operator: Optional[MatmulOperator] = None,
-                   refine_iters: int = 2) -> SvdResult:
+                   refine_iters: int = 2,
+                   info: Optional[dict] = None) -> SvdResult:
     """Rank-k truncated SVD (semantics of the JAX package's
     ``randomized_svd``).
 
@@ -127,6 +130,9 @@ def randomized_svd(a: Union[torch.Tensor, MatmulOperator], k: int,
     ``tol``; when they are not, the block doubles (fresh random columns)
     up to ``max_escalations`` times.  Without ``tol``, exactly ``n_iter``
     iterations run.
+
+    ``info``, when given, receives the power iterations run per block
+    width (``iterations``: ``[(block, count), ...]``) and ``converged``.
     """
     op = _as_operator(a)
     m, n = op.shape
@@ -146,12 +152,16 @@ def randomized_svd(a: Union[torch.Tensor, MatmulOperator], k: int,
         refine = refine_iters if power_operator is not None else 0
         u, s, v = _build_fixed(op, pow_op, gen, block, n_iter, refine,
                                dtype)
+        if info is not None:
+            info.update(iterations=[(block, n_iter + refine)],
+                        converged=None)
         return SvdResult(u=u[:, :k], s=s[:k], v=v[:, :k])
 
     omega = torch.randn((n, block), generator=gen, dtype=dtype,
                         device=gen.device)
     q, _ = torch.linalg.qr(pow_op.mm(omega))
-    q, converged = _power_until(pow_op, q, k, float(tol), max_iter)
+    q, converged, count = _power_until(pow_op, q, k, float(tol), max_iter)
+    iterations = [(q.shape[1], count)]
     for _ in range(max_escalations):
         if converged or q.shape[1] >= min(m, n):
             break
@@ -159,11 +169,122 @@ def randomized_svd(a: Union[torch.Tensor, MatmulOperator], k: int,
         extra = pow_op.mm(torch.randn((n, grow), generator=gen, dtype=dtype,
                                       device=gen.device))
         q, _ = torch.linalg.qr(torch.cat([q, extra], dim=1))
-        q, converged = _power_until(pow_op, q, k, float(tol), max_iter)
+        q, converged, count = _power_until(pow_op, q, k, float(tol),
+                                           max_iter)
+        iterations.append((q.shape[1], count))
 
     if power_operator is not None and refine_iters > 0:
         for _ in range(refine_iters):
             q, _ = _power_step(op, q)
+    if info is not None:
+        info.update(iterations=iterations, converged=converged)
 
     u, s, v = _finalize(op, q)
     return SvdResult(u=u[:, :k], s=s[:k], v=v[:, :k])
+
+
+def _krylov_basis(op: MatmulOperator, omega: torch.Tensor, depth: int
+                  ) -> torch.Tensor:
+    """Orthonormal block-Krylov basis ``[Z_1 .. Z_depth]`` on the V side.
+
+    Each block is orthogonalized against the accumulated basis (two-pass
+    block Gram–Schmidt: one projection leaves O(cond·eps) cross-talk that
+    grows with depth) before appending; a final whole-basis QR restores
+    orthonormality, since converged Krylov blocks are nearly dependent."""
+    q, _ = torch.linalg.qr(op.mm(omega))          # (m, b)
+    basis = None
+    for i in range(depth):
+        z, _ = torch.linalg.qr(op.rmm(q))         # (n, b)
+        if basis is not None:
+            z = z - basis @ (basis.T @ z)
+            z = z - basis @ (basis.T @ z)
+            z, _ = torch.linalg.qr(z)
+            basis = torch.cat([basis, z], dim=1)
+        else:
+            basis = z
+        if i < depth - 1:
+            q, _ = torch.linalg.qr(op.mm(z))
+    basis, _ = torch.linalg.qr(basis)
+    return basis
+
+
+def _finalize_wide(op: MatmulOperator, z: torch.Tensor) -> SvdResult:
+    """Rayleigh–Ritz over a wide V-side basis without a large SVD: QR the
+    (m, w) image, then SVD only the (w, w) factor."""
+    qb, rb = torch.linalg.qr(op.mm(z))            # (m, w) full precision
+    ub, s, wt = torch.linalg.svd(rb, full_matrices=False)
+    return SvdResult(qb @ ub, s, z @ wt.T)
+
+
+def _refine_basis(op: MatmulOperator, z: torch.Tensor, n_iter: int
+                  ) -> torch.Tensor:
+    """Full-precision two-sided power steps over a (n, w) basis — the
+    precision-ladder rung that scrubs bf16 Krylov-basis noise."""
+    for _ in range(n_iter):
+        q, _ = torch.linalg.qr(op.mm(z))
+        z, _ = torch.linalg.qr(op.rmm(q))
+    return z
+
+
+def randomized_svd_krylov(a: Union[torch.Tensor, MatmulOperator], k: int,
+                          depth: int = 4,
+                          oversample: Optional[int] = None,
+                          seed: Optional[int] = 0,
+                          dtype: Optional[torch.dtype] = None,
+                          power_operator: Optional[MatmulOperator] = None,
+                          refine_iters: int = 1) -> SvdResult:
+    """Rank-k truncated SVD via block Krylov iteration (Musco & Musco;
+    semantics of the JAX package's ``randomized_svd_krylov``).
+
+    All ``depth`` blocks are kept and Rayleigh–Ritz-projected together,
+    reaching the subspace path's accuracy in about half the passes over
+    ``a``; the basis is ``depth * block`` columns wide.  With a
+    ``power_operator`` (bf16) the basis builds on it, then one
+    Rayleigh–Ritz over the wide basis picks the top ``block`` Ritz
+    directions, ``refine_iters`` full-precision power steps refine only
+    those (refining the wide basis would collapse its Krylov spread), and
+    the final projection reads the full-precision matrix.  Householder QR
+    throughout (``torch.linalg.qr``)."""
+    op = _as_operator(a)
+    m, n = op.shape
+    dtype = dtype or op.dtype
+    if k <= 0 or k > min(m, n):
+        raise ValueError(f"rank {k} out of range for shape {op.shape}")
+    block = min(k + (oversample if oversample is not None else max(10, k)),
+                min(m, n))
+    depth = max(1, min(depth, max(1, min(m, n) // block)))
+    pow_op = power_operator if power_operator is not None else op
+    if tuple(pow_op.shape) != tuple(op.shape):
+        raise ValueError(f"power operator shape {pow_op.shape} does not "
+                         f"match {op.shape}")
+
+    gen = generator_from_seed(seed, _operator_device(op))
+    omega = torch.randn((n, block), generator=gen, dtype=dtype,
+                        device=gen.device)
+    z = _krylov_basis(pow_op, omega, depth)
+    if power_operator is not None and refine_iters > 0:
+        v = _finalize_wide(op, z).v
+        z = _refine_basis(op, v[:, :block], refine_iters)
+    u, s, v = _finalize_wide(op, z)
+    return SvdResult(u=u[:, :k], s=s[:k], v=v[:, :k])
+
+
+def principal_angles_max_sin(u1: torch.Tensor, u2: torch.Tensor) -> float:
+    """max sin(principal angle) between two column spans — the
+    subspace-agreement measure of the parity tests."""
+    q1, _ = torch.linalg.qr(u1)
+    q2, _ = torch.linalg.qr(u2)
+    sv = torch.linalg.svdvals(q1.T @ q2)
+    cos = torch.clamp(sv, 0.0, 1.0)
+    return float(torch.sqrt(torch.max(1.0 - cos ** 2)))
+
+
+def orthogonalize(u: torch.Tensor, v: torch.Tensor, complete: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QR-orthogonalize a factor pair (reference ``models.py:567-578``)."""
+    qu, ru = torch.linalg.qr(u)
+    qv, rv = torch.linalg.qr(v)
+    if complete:
+        ur, _, vr = torch.linalg.svd(ru @ rv.T)
+        return qu @ ur, qv @ vr.T
+    return qu, qv

@@ -59,8 +59,8 @@ class ChunkedTestData:
               ) -> "ChunkedTestData":
         """``user_rows`` must be sorted ascending and *rebased* to test
         rows 0..n_users-1 (the data model guarantees both).  ``device``
-        defaults to the card when one is present."""
-        device = resolve_device(device)
+        defaults to the card."""
+        device = resolve_device(device, "ChunkedTestData.build")
         if chunk_users is None:
             bounds = plan_user_chunks(n_users, n_items,
                                       scores_multiplier=scores_multiplier,

@@ -108,7 +108,7 @@ class CooMatrix:
                    dtype: torch.dtype = torch.float32,
                    device: Device = None) -> "CooMatrix":
         order = np.argsort(rows, kind="stable")
-        device = resolve_device(device)
+        device = resolve_device(device, "CooMatrix.from_numpy")
         return cls(torch.as_tensor(np.asarray(rows)[order],
                                    dtype=torch.int64).to(device),
                    torch.as_tensor(np.asarray(cols)[order],
@@ -160,7 +160,7 @@ def coo_from_arrays(idx: np.ndarray, val: np.ndarray,
                     device: Device = None) -> CooMatrix:
     """Build from the data model's ``to_coo`` output ((nnz, 2) index)."""
     return CooMatrix.from_numpy(idx[:, 0], idx[:, 1], val, shape[:2], dtype,
-                                device)
+                                resolve_device(device, "coo_from_arrays"))
 
 
 def dense_from_coo(idx: np.ndarray, val: np.ndarray,
@@ -171,7 +171,7 @@ def dense_from_coo(idx: np.ndarray, val: np.ndarray,
     the host in f64 (like the JAX package) and move over in one copy;
     tensors accumulate on ``device``."""
     shape = tuple(int(s) for s in shape)
-    device = resolve_device(device)
+    device = resolve_device(device, "dense_from_coo")
     if isinstance(idx, np.ndarray) and isinstance(val, np.ndarray):
         flat = np.ravel_multi_index(
             tuple(idx[:, d] for d in range(idx.shape[1])), shape)

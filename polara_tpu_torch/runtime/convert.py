@@ -20,10 +20,10 @@ def factors_from_jax(factors: Dict[str, Optional[np.ndarray]],
                      dtype: torch.dtype = torch.float32
                      ) -> Dict[str, Optional[torch.Tensor]]:
     """``{name: array or None}`` -> ``{name: tensor or None}`` on
-    ``device`` (default: the card when one is present, else the CPU) in
+    ``device`` (default: the card; without one, name the CPU) in
     ``dtype`` (entries that are None stay None, like the JAX model's
     dropped user factors)."""
-    device = resolve_device(device)
+    device = resolve_device(device, "factors_from_jax")
     out: Dict[str, Optional[torch.Tensor]] = {}
     for name, value in factors.items():
         if value is None:

@@ -1,0 +1,111 @@
+"""Which public exports of ``polara_tpu`` have no port yet.
+
+``UNPORTED`` lists, per ``polara_tpu`` package, the exported names (its
+``__all__``; for a package without one, the functions it defines) that the
+same-named ``polara_tpu_torch`` package does not provide yet.  A listed
+name that gains a port, or an unlisted one that lacks it, fails a test:
+the list shrinks with every slice of the port (ROADMAP queue A)."""
+import importlib
+import pkgutil
+
+import polara_tpu
+
+# unported public names, per polara_tpu package
+UNPORTED = {
+    "polara_tpu": {
+        "get_movielens_data", "get_netflix_data", "get_bookcrossing_data",
+        "get_amazon_data",
+    },
+    "polara_tpu.data": {
+        "SampledEvaluationMixin", "LongTailMixin", "SideRelationsMixin",
+        "IdentityDiagonalMixin", "SimilarityDataModel", "ItemColdStartData",
+        "ColdSimilarityMixin", "ItemColdStartSimilarityData",
+        "ItemPostFilteringData",
+    },
+    "polara_tpu.datasets": {
+        "get_amazon_data", "get_bookcrossing_data", "get_epinions_data",
+        "compute_graph_laplacian", "get_movielens_data", "get_split_genres",
+        "filter_short_head", "get_netflix_data", "get_yahoo_music_data",
+        "make_realistic_coo", "make_realistic_interactions",
+    },
+    "polara_tpu.models": {
+        "ProbabilisticMF", "CoffeeModel", "SimilarityAggregation",
+        "KernelizedPMF", "LCEModel", "HybridSVD", "ScaledHybridSVD",
+        "RandomModelItemColdStart", "PopularityModelItemColdStart",
+        "SimilarityAggregationItemColdStart", "SVDModelItemColdStart",
+        "HybridSVDItemColdStart", "ScaledSVDItemColdStart",
+        "ScaledHybridSVDItemColdStart", "LCEModelItemColdStart",
+        "ItemPostFilteringMixin", "ImplicitALS", "ImplicitBPR",
+    },
+    "polara_tpu.ops": {
+        "PaddedRows", "inner_product_at", "pad_rows",
+    },
+    "polara_tpu.parallel": {
+        "cholesky_qr2", "distributed_randomized_svd",
+        "distributed_chunked_rsvd", "distributed_ials",
+        "distributed_ials_events", "distributed_bpr", "distributed_hooi",
+        "score_mask_topk_step", "sharded_score_topk_2d", "full_train_step",
+        "make_mesh", "user_sharding", "shard_rows", "set_default_mesh",
+        "get_default_mesh", "use_mesh",
+    },
+    "polara_tpu.preprocessing": {
+        "dataframes", "features", "matrices",
+    },
+    "polara_tpu.recommender": {
+        "data", "models", "evaluation",
+    },
+    "polara_tpu.runtime": {
+        "timed_blocked", "profiler_trace", "enable_compilation_cache",
+        "random_seeds", "key_from_seed", "make_mesh", "user_sharding",
+        "shard_rows", "set_default_mesh", "get_default_mesh", "use_mesh",
+        "pad_dim", "array_split", "get_chunk_size", "get_available_memory",
+        "read_npz_from_url", "ServingBundle",
+    },
+}
+
+
+def _exports(module):
+    names = getattr(module, "__all__", None)
+    if names is not None:
+        return set(names)
+    return {name for name, value in vars(module).items()
+            if not name.startswith("_") and callable(value)
+            and getattr(value, "__module__", None) == module.__name__}
+
+
+def _port_gaps():
+    """``{polara_tpu package: names its port lacks}`` over the top level
+    and every subpackage."""
+    packages = ["polara_tpu"] + [
+        f"polara_tpu.{info.name}"
+        for info in pkgutil.iter_modules(polara_tpu.__path__)
+        if info.ispkg]
+    gaps = {}
+    for name in packages:
+        try:
+            port = importlib.import_module(
+                name.replace("polara_tpu", "polara_tpu_torch", 1))
+        except ModuleNotFoundError:
+            port = None
+        missing = {export for export in
+                   _exports(importlib.import_module(name))
+                   if port is None or not hasattr(port, export)}
+        if missing:
+            gaps[name] = missing
+    return gaps
+
+
+def test_listed_names_have_no_port_yet():
+    gaps = _port_gaps()
+    ported = {f"{package}:{name}" for package, names in UNPORTED.items()
+              for name in names - gaps.get(package, set())}
+    assert not ported, (f"now ported, remove from UNPORTED: "
+                        f"{sorted(ported)}")
+
+
+def test_every_unported_name_is_listed():
+    gaps = _port_gaps()
+    unlisted = {f"{package}:{name}" for package, names in gaps.items()
+                for name in names - UNPORTED.get(package, set())}
+    assert not unlisted, (f"no port and not in UNPORTED: "
+                          f"{sorted(unlisted)}")

@@ -83,3 +83,33 @@ def test_kernel_raises_instead_of_falling_back():
         tf.fused_score_topk(wide, torch.zeros((100, tf.MAX_RANK + 1),
                                               device=device), bits, 5)
     assert tf.fused_score_topk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank,width", [(10, 150), (150, 256)])
+def test_zero_padded_rank_gives_truncated_picks(rank, width):
+    """A rank sweep pads truncated factors with zero columns up to the top
+    rank: each score is an fmaf chain from 0, so the zero terms leave it
+    exact and the kernel's ids and values equal those of the truncated
+    factors bit for bit (Gaussian factors, no dyadic help)."""
+    device = _cuda()
+    rs = np.random.RandomState(rank)
+    n_users, n_items = 300, 3000
+    proj = torch.zeros((n_users, width), device=device)
+    items = torch.zeros((n_items, width), device=device)
+    proj[:, :rank] = torch.as_tensor(rs.randn(n_users, rank),
+                                     dtype=torch.float32, device=device)
+    items[:, :rank] = torch.as_tensor(rs.randn(n_items, rank),
+                                      dtype=torch.float32, device=device)
+    pairs = np.unique(np.stack([rs.randint(0, n_users, 9000),
+                                rs.randint(0, n_items, 9000)], 1), axis=0)
+    bits = tf.pack_seen_bits(torch.as_tensor(pairs[:, 0], device=device),
+                             torch.as_tensor(pairs[:, 1], device=device),
+                             n_users, n_items)
+    pv, pi = tf.fused_score_topk(proj, items, bits, 10, return_values=True)
+    tv, ti = tf.fused_score_topk(proj[:, :rank].contiguous(),
+                                 items[:, :rank].contiguous(), bits, 10,
+                                 return_values=True)
+    torch.cuda.synchronize()
+    assert torch.equal(pi, ti)
+    assert torch.equal(pv, tv)

@@ -1,5 +1,6 @@
-"""The port's import boundary: ``polara_tpu_torch`` and its device tier
-load neither jax nor pandas (the machine with the GPU may have neither)."""
+"""The port's import boundary: ``polara_tpu_torch`` loads no jax and
+nothing of ``polara_tpu``; its device tier and the plotting module load
+neither pandas nor matplotlib."""
 import os
 import subprocess
 import sys
@@ -7,7 +8,15 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
-           "polara_tpu_torch.ops.scoring, polara_tpu_torch.evaluation.metrics")
+           "polara_tpu_torch.ops.scoring, "
+           "polara_tpu_torch.evaluation.metrics, "
+           "polara_tpu_torch.models.baselines, polara_tpu_torch.native, "
+           "polara_tpu_torch.ops.similarity, polara_tpu_torch.runtime, "
+           "polara_tpu_torch.evaluation.plotting")
+# the pandas tier: the data model and the experiment pipelines
+PANDAS_TIER = ("import polara_tpu_torch.data, "
+               "polara_tpu_torch.evaluation.engine, "
+               "polara_tpu_torch.evaluation.pipelines")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -22,6 +31,7 @@ def test_import_loads_no_jax_module():
         import sys
         before = set(sys.modules)
         {IMPORTS}
+        {PANDAS_TIER}
         new = sorted(set(sys.modules) - before)
         bad = [m for m in new if m.split(".")[0] in ("jax", "jaxlib")
                or m == "polara_tpu" or m.startswith("polara_tpu.")]
@@ -35,6 +45,7 @@ def test_import_with_pandas_blocked():
     proc = _run(f"""
         import sys
         sys.modules["pandas"] = None   # any 'import pandas' now raises
+        sys.modules["matplotlib"] = None
         {IMPORTS}
         import polara_tpu_torch.datasets, polara_tpu_torch.runtime.convert
         print("IMPORTED")

@@ -86,3 +86,62 @@ def test_cholesky_qr2_orthogonality():
     assert torch.linalg.norm(q.T @ q - eye) < 1e-12
     assert torch.allclose(q @ r, y, rtol=0, atol=1e-12)
     assert torch.equal(r, torch.triu(r))
+
+
+def test_principal_angles_and_orthogonalize_match_jax():
+    """``principal_angles_max_sin`` and ``orthogonalize`` (both modes)
+    against the JAX package's on the same f64 panels, to 1e-6."""
+    from polara_tpu.ops.rsvd import orthogonalize as jax_orth
+    from polara_tpu.ops.rsvd import principal_angles_max_sin as jax_angles
+    from polara_tpu_torch.ops.rsvd import (orthogonalize,
+                                           principal_angles_max_sin)
+    rs = np.random.RandomState(4)
+    a, b = rs.randn(60, 6), rs.randn(60, 6)
+    b_near = a + 1e-3 * rs.randn(60, 6)
+    for x, y in ((a, b), (a, b_near)):
+        np.testing.assert_allclose(
+            principal_angles_max_sin(torch.as_tensor(x), torch.as_tensor(y)),
+            jax_angles(jnp.asarray(x), jnp.asarray(y)), rtol=0, atol=1e-6)
+    u, v = rs.randn(50, 5), rs.randn(40, 5)
+    for complete in (False, True):
+        got = orthogonalize(torch.as_tensor(u), torch.as_tensor(v),
+                            complete=complete)
+        want = jax_orth(jnp.asarray(u), jnp.asarray(v), complete=complete)
+        for g, w in zip(got, want):
+            # QR/SVD factors are defined up to column signs
+            g, w = g.numpy(), np.asarray(w)
+            signs = np.sign((g * w).sum(0))
+            np.testing.assert_allclose(g * signs, w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_krylov_matches_jax(bf16):
+    """Block Krylov in f32, with and without the bf16 power operator and
+    its f32 refinement: singular values within 1e-4 relative of the JAX
+    package's and max principal-angle sine <= 1e-3 between the two V
+    subspaces (f32 solves from different random starts)."""
+    from polara_tpu.ops.rsvd import randomized_svd_krylov as jax_krylov
+    from polara_tpu_torch.ops.rsvd import randomized_svd_krylov
+    a = _matrix(seed=5).astype(np.float32)
+    ta, ja = torch.as_tensor(a), jnp.asarray(a)
+    ours = randomized_svd_krylov(
+        ta, K, depth=3, seed=0,
+        power_operator=dense_power_operator(ta) if bf16 else None)
+    ref = jax_krylov(ja, K, depth=3, seed=0, qr_method="householder",
+                     power_operator=jax_power_op(ja) if bf16 else None)
+    assert ours.s.dtype == torch.float32
+    np.testing.assert_allclose(ours.s.numpy(), np.asarray(ref.s), rtol=1e-4)
+    assert _max_sin(ours.v, ref.v) <= 1e-3
+    assert _max_sin(ours.u, ref.u) <= 1e-3
+
+
+def test_tolerance_path_reports_iterations():
+    """``info`` records the power iterations per block width and whether
+    the tolerance was met."""
+    a = _matrix(seed=1)
+    info = {}
+    randomized_svd(torch.as_tensor(a), K, oversample=0, tol=1e-13,
+                   max_iter=3, seed=0, info=info)
+    assert info["iterations"][0] == (K, 3)
+    assert [b for b, _ in info["iterations"]] == [K, 2 * K, 4 * K]
+    assert all(1 <= n <= 3 for _, n in info["iterations"])

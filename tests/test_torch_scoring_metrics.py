@@ -39,7 +39,7 @@ def _plans(rows, cols, vals, n_users, n_items, **kwargs):
     return (jscoring.ChunkedTestData.build(rows, cols, vals, n_users,
                                            n_items, **kwargs),
             tscoring.ChunkedTestData.build(rows, cols, vals, n_users,
-                                           n_items, **kwargs))
+                                           n_items, device="cpu", **kwargs))
 
 
 @pytest.mark.parametrize("kwargs", [dict(), dict(chunk_users=7),

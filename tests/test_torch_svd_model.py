@@ -30,7 +30,7 @@ def _pair(frame, **config):
 
 
 def _model(cls, data, rank=RANK):
-    model = cls(data)
+    model = cls(data, device="cpu") if cls is TorchSVD else cls(data)
     model.verbose = False
     model.rank = rank
     return model
@@ -65,7 +65,7 @@ def test_carried_factors_give_identical_recommendations(
     want = ref.recommendations
     port = TorchSVD(tdata, device="cpu")
     port.verbose = False
-    port.set_factors(factors_from_jax(_jax_factors(ref)))
+    port.set_factors(factors_from_jax(_jax_factors(ref), device="cpu"))
     np.testing.assert_array_equal(port.recommendations, want)
     _assert_metrics_close(port.evaluate(), ref.evaluate(), atol=1e-6)
 

@@ -23,7 +23,8 @@ def test_realistic_coo_device_calibration():
     the torch-drawn parts are checked by their statistics only."""
     geo = dict(n_users=300, n_items=400, n_events=12_000)
     rows, cols, vals = tsynth.make_realistic_coo_device(**geo, seed=1,
-                                                        row_chunk=128)
+                                                        row_chunk=128,
+                                                        device="cpu")
     rs = np.random.RandomState(1)
     user_w = 1.0 / np.arange(1, 301) ** 0.6
     want_counts = jsynth._largest_remainder_counts(
