@@ -40,9 +40,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    launches the kernel and solves the scaled matrix; a Krylov build's
    residual and HR@10 against the subspace build's; a checkpoint round
    trip gives identical recommendations.
+6. The mesh path at ML-10M geometry (phase 3's data and seed) over a
+   (4, 1) ``users`` mesh and a (2, 2) ``users x model`` mesh, entries
+   dealt to the visible cards in turn (all ``cuda:0`` on one card): the
+   row-sharded dense block and bf16 copy solved with CholeskyQR2, then
+   ``run_scoring_fused(mesh=...)`` on each mesh, counted.  Gates: launches
+   = user shards x item shards x chunks; phase 3's quality bars for the
+   mesh build; on one projection, both meshes' ids and values equal the
+   single-device kernel's (``filter_seen`` True and False);
+   ``full_train_step`` on the (4, 1) mesh gives the hit count of its
+   factors scored on one device; ``SVDModel(data, mesh=...)`` caches a
+   row-sharded block, launches 4 x chunks and matches one device's HR@10
+   within 1e-3 and top-10 within 0.99 overlap.  Times: the builds,
+   CholeskyQR2 at (users x 100), each route's scoring, one shard's kernel
+   with its bound, and the two-stage merge.
 
-pandas is required (phases 4 and 5): without it the script exits
-non-zero before phase 1.
+pandas is required (phases 4-6): without it the script exits non-zero
+before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
 kernel (its time at the main path's inputs beside the plain version's,
@@ -51,12 +65,14 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-5;
-``sweep_top_rank`` the same fields at the sweep's rank-150 shape), and as
+and then the score kernel, and ``launches_by_path`` those of phases 3-6;
+``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
+``mesh_shard`` at one shard of each mesh, and ``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
 """
+import gc
 import importlib.util
 import json
 import subprocess
@@ -186,7 +202,8 @@ def _compare(proj, items, bits, k, filter_seen=True, n_valid=None,
                                         filter_seen=filter_seen,
                                         n_valid_cols=n_valid,
                                         return_values=True)
-    torch.cuda.synchronize()
+    if proj.is_cuda:
+        torch.cuda.synchronize()
     check((ki == -1).eq(pi == -1).all().item(), "PAD slots agree")
     finite = pi >= 0
     if exact:
@@ -929,12 +946,15 @@ def sweep_phase(geometry, device="cuda", ranks=tuple(range(10, 160, 10)),
 
 def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
     """The kernel at the sweep's top-rank shape: its time beside the plain
-    version's and cuBLAS's scores alone, its bound, and the blocks per SM
+    version's, cuBLAS's scores alone and the PyTorch route (scores, seen
+    mask, ``torch.topk``, as phase 3's ``topk_baseline``), its bound, and
+    the blocks per SM
     its shared memory allows (the kernel takes
     4 * (rank * (64 + 128) + 64 * 132) bytes a block)."""
     import torch
     from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
-                                                 fused_score_topk_reference)
+                                                 fused_score_topk_reference,
+                                                 seen_mask)
     n_users, rank = proj.shape
     fields = {"users": n_users, "items": n_items, "rank": rank}
     if proj.is_cuda:
@@ -943,6 +963,12 @@ def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
         fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
             proj, panel, bits, TOPK, n_valid_cols=n_items), 3)
         fields["library_ms"] = time_ms(lambda: proj @ panel.T, reps)
+
+        def topk_route():
+            s = proj @ panel.T
+            s.masked_fill_(seen_mask(bits, n_items), -torch.inf)
+            return torch.topk(s, TOPK, dim=1)
+        fields["topk_ms"] = time_ms(topk_route, reps)
         props = torch.cuda.get_device_properties(proj.device)
         per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
         smem = 4 * (rank * (64 + 128) + 64 * 132)
@@ -952,6 +978,372 @@ def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
     fields["bytes"] = 4 * (proj.numel() + n_items * rank
                            + n_users * -(-n_items // 32) + 2 * n_users * TOPK)
     return fields
+
+
+# --------------------------------------------------------------------------
+# phase 6: the mesh path
+# --------------------------------------------------------------------------
+
+def mesh_devices(n_entries: int, device="cuda"):
+    """``n_entries`` mesh entries dealt to the visible cards in turn (on a
+    one-card machine every entry is that card); off the card, ``device``."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return [torch.device(device)] * n_entries
+    n_cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % n_cards) for i in range(n_entries)]
+
+
+def _bits_words(bits, lo_col: int, hi_col: int):
+    return bits[:, lo_col // 32:-(-hi_col // 32)].contiguous()
+
+
+def mesh_shard_fields(proj, panel, bits, n_valid, device):
+    """The kernel at one mesh shard's inputs, held against its plain
+    version as in phases 2 and 3 (:func:`_compare`: PAD slots, ids in
+    range and unseen, no repeats, each pick's re-scored gap within
+    ``RESCORE_RTOL``) and its values within ``RESCORE_RTOL`` of the
+    largest plain score; then its time beside the plain version's and
+    cuBLAS's scores alone, and its least work (as
+    :func:`sweep_kernel_fields`)."""
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 fused_score_topk_reference)
+    n_users, rank = proj.shape
+    agree, err = _compare(proj, panel, bits, TOPK, n_valid=n_valid)
+    pv, _ = fused_score_topk_reference(proj, panel, bits, TOPK,
+                                       n_valid_cols=n_valid,
+                                       return_values=True)
+    scale = pv[pv > -np.inf].abs().max().item()
+    check(err <= RESCORE_RTOL * scale, f"shard {n_users} x {n_valid}: max "
+          f"|value diff| {err:.2e} <= {RESCORE_RTOL:g} x the largest plain "
+          f"score {scale:.3e}")
+    fields = {"users": n_users, "items": n_valid, "rank": rank,
+              "max_abs_err": err, "exact_agreement": agree}
+    if proj.is_cuda:
+        fields["ms"] = time_ms(lambda: fused_score_topk(
+            proj, panel, bits, TOPK, n_valid_cols=n_valid), 20)
+        fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
+            proj, panel, bits, TOPK, n_valid_cols=n_valid), 3)
+        fields["library_ms"] = time_ms(lambda: proj @ panel.T, 20)
+    fields["flop"] = 2 * n_users * n_valid * rank
+    fields["bytes"] = 4 * (proj.numel() + n_valid * rank
+                           + n_users * -(-n_valid // 32) + 2 * n_users * TOPK)
+    return fields
+
+
+def mesh_phase(geometry, device="cuda"):
+    """Phase 6: PureSVD rank 50 at this geometry (phase 3's data and seed)
+    over a (4, 1) ``users`` mesh and a (2, 2) ``users x model`` mesh whose
+    entries go to the visible cards in turn.  Returns the measured fields;
+    raises on a failed gate except the launch counts of the counted
+    scoring runs (``launches``), which the caller checks."""
+    import torch
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.models.svd import SVDModel
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.ops.rsvd import (cholesky_qr2,
+                                           principal_angles_max_sin,
+                                           randomized_svd)
+    from polara_tpu_torch.ops.scoring import (ChunkedTestData,
+                                              _merge_candidates, run_scoring,
+                                              run_scoring_fused)
+    from polara_tpu_torch.ops.sparse import (CooMatrix, dense_operator,
+                                             dense_power_operator)
+    from polara_tpu_torch.parallel import (full_train_step,
+                                           score_mask_topk_step)
+    from polara_tpu_torch.runtime.mesh import (ShardedRows, make_mesh,
+                                               pad_to_multiple,
+                                               shard_device_count, shard_rows)
+
+    n_users, n_items = geometry["n_users"], geometry["n_items"]
+    out = {}
+    meshes = {name: make_mesh(devices=mesh_devices(r * c, device),
+                              shape=(r, c))
+              for name, (r, c) in (("mesh_1d", (4, 1)), ("mesh_2d", (2, 2)))}
+    for name, mesh in meshes.items():
+        grid = np.vectorize(str, otypes=[object])(mesh.devices).tolist()
+        log(f"  {name} {mesh.shape}: device grid {grid}")
+        out[f"{name}_grid"] = grid
+    n_dev = {name: mesh.shape["users"] for name, mesh in meshes.items()}
+    n_model = {name: mesh.shape["model"] for name, mesh in meshes.items()}
+
+    # ---- phase 3's data, split and staging
+    rows_d, cols_d, vals_d = make_realistic_coo_device(**geometry, seed=0,
+                                                       device=device)
+    rows, cols, vals = (x.cpu().numpy() for x in (rows_d, cols_d, vals_d))
+    _, hold_items, hold_mask = holdout_split(rows, cols)
+    keep = ~hold_mask
+    matrix = CooMatrix.from_numpy(rows[keep], cols[keep], vals[keep],
+                                  (n_users, n_items), device=device)
+    dense = matrix.to_dense()
+    hold_items_d = torch.as_tensor(hold_items, device=device)
+    # one plan per users-axis size (1, 4, 2): chunks align to the axis and
+    # their budget scales by the distinct cards holding its shards
+    shard_devices = {1: 1, **{n_dev[name]: shard_device_count(mesh)
+                              for name, mesh in meshes.items()}}
+    plans = {n: ChunkedTestData.build(rows[keep], cols[keep], vals[keep],
+                                      n_users=n_users, n_items=n_items,
+                                      device=device, n_shards=n,
+                                      n_devices=n_devices)
+             for n, n_devices in shard_devices.items()}
+    plan = plans[1]
+
+    # ---- the build: dense block and bf16 copy sharded over the 1-D mesh,
+    # CholeskyQR2 panels; single-device Householder build beside it
+    def build(mesh):
+        a = dense if mesh is None else shard_rows(dense, mesh)
+        return randomized_svd(dense_operator(a), RANK, n_iter=POWER_ITERS,
+                              tol=None, seed=0,
+                              qr_method=None if mesh is None else "cholesky2",
+                              power_operator=dense_power_operator(a))
+
+    mesh1 = meshes["mesh_1d"]
+    with Timer() as t:
+        result = build(mesh1)
+    out["mesh_build_s"] = t.seconds
+    with Timer() as t:
+        build(mesh1)
+    out["mesh_build_warm_s"] = t.seconds
+    with Timer() as t:
+        single = build(None)
+    out["single_build_warm_s"] = t.seconds
+    check(tuple(result.u.shape) == (n_users, RANK),
+          "mesh build: u gathered without the padding rows")
+    resid = dense @ result.v - result.u * result.s[None, :]
+    out["triplet_residual"] = (torch.linalg.norm(resid, dim=0)
+                               / result.s[0]).max().item()
+    del resid
+    check(out["triplet_residual"] < 1e-2, f"mesh build: max triplet "
+          f"residual {out['triplet_residual']:.3e} < 1e-2")
+    out["max_sin_vs_single"] = principal_angles_max_sin(result.v.double(),
+                                                        single.v.double())
+    log(f"  mesh build {out['mesh_build_s']:.3f} s cold, "
+        f"{out['mesh_build_warm_s']:.3f} s warm; single-device "
+        f"{out['single_build_warm_s']:.3f} s; largest principal-angle sine "
+        f"vs the single-device build {out['max_sin_vs_single']:.3e}")
+
+    # ---- the counted drive: the mesh build's factors scored on each mesh
+    v = result.v.contiguous()
+    params = {"item_factors": v, "item_panel": v}
+    recs = {}
+    for name, mesh in meshes.items():
+        fused_score_topk.launches = 0
+        recs[name] = run_scoring_fused(
+            plans[n_dev[name]], SVDModel.proj_chunk, params, TOPK,
+            n_valid_cols=n_items, on_device=True, item_order="popularity",
+            mesh=mesh)
+        out.setdefault("launches", {})[name] = fused_score_topk.launches
+        out.setdefault("expected_launches", {})[name] = (
+            n_dev[name] * n_model[name] * len(plans[n_dev[name]].chunks))
+        check(tuple(recs[name].shape) == (n_users, TOPK)
+              and bool(((recs[name] >= 0) & (recs[name] < n_items)).all()),
+              f"{name}: recommendation shape, every id in [0, {n_items})")
+    # two projections: index_add_ may differ in the last bit between them
+    out["mesh_1d_vs_2d_agreement"] = (
+        recs["mesh_1d"] == recs["mesh_2d"]).float().mean().item()
+    hr, ndcg = _hit_metrics(recs["mesh_1d"], hold_items_d)
+    out.update(hr10=hr, ndcg10=ndcg)
+
+    # quality bars of phase 3, against exact f64 factors
+    d64 = dense.double()
+    evals, evecs = torch.linalg.eigh(d64.T @ d64)
+    del d64
+    v_ex = evecs[:, -RANK:].flip(1).float().contiguous()
+    recs_ex = run_scoring_fused(plan, SVDModel.proj_chunk,
+                                {"item_factors": v_ex, "item_panel": v_ex},
+                                TOPK, n_valid_cols=n_items, on_device=True,
+                                item_order="popularity")
+    hr_ex, ndcg_ex = _hit_metrics(recs_ex, hold_items_d)
+    out["metric_delta_vs_exact"] = max(abs(hr - hr_ex), abs(ndcg - ndcg_ex))
+    out["top10_overlap"] = ((recs["mesh_1d"][:, :, None]
+                             == recs_ex[:, None, :]).sum((1, 2)).double()
+                            / TOPK).mean().item()
+    log(f"  mesh HR@{TOPK} {hr:.5f} NDCG@{TOPK} {ndcg:.5f}; exact "
+        f"factors HR@{TOPK} {hr_ex:.5f} NDCG@{TOPK} {ndcg_ex:.5f}")
+    check(out["metric_delta_vs_exact"] < 1e-3, f"mesh build: "
+          f"metric_delta_vs_exact {out['metric_delta_vs_exact']:.2e} < 1e-3")
+    check(out["top10_overlap"] >= 0.99, f"mesh build: top-{TOPK} overlap "
+          f"{out['top10_overlap']:.5f} >= 0.99")
+
+    # ---- mesh picks == single-device picks on one projection
+    proj_all = torch.cat([SVDModel.proj_chunk(params, c)
+                          for c in plan.chunks])[:n_users].contiguous()
+    fixed = {"item_panel": v, "proj": proj_all}
+
+    def fixed_proj(p, chunk):
+        return p["proj"][chunk.users]
+
+    def route(name, filter_seen, proj_fn=fixed_proj, p=fixed):
+        mesh = meshes.get(name)
+        return run_scoring_fused(
+            plans[n_dev.get(name, 1)], proj_fn, p, TOPK,
+            filter_seen=filter_seen, n_valid_cols=n_items, on_device=True,
+            item_order="popularity", mesh=mesh, return_values=True)
+
+    for filter_seen in (True, False):
+        want_vals, want_ids = route(None, filter_seen)
+        for name in meshes:
+            before = fused_score_topk.launches
+            got_vals, got_ids = route(name, filter_seen)
+            launched = fused_score_topk.launches - before
+            check(torch.equal(got_ids, want_ids)
+                  and torch.equal(got_vals, want_vals),
+                  f"{name} filter_seen={filter_seen}: ids and values == "
+                  f"the single-device kernel's on one projection")
+            if proj_all.is_cuda:
+                check(launched == out["expected_launches"][name],
+                      f"{name}: {launched} launches == user shards x item "
+                      f"shards x chunks")
+
+    # ---- the unfused route (run_scoring) per users shard == one device, on
+    # one fixed score block of the first users
+    few = min(n_users, VERIFY_USERS)
+    sub = rows[keep] < few
+    few_plans = {n: ChunkedTestData.build(
+        rows[keep][sub], cols[keep][sub], vals[keep][sub], n_users=few,
+        n_items=n_items, device=device, n_shards=n, n_devices=n_devices)
+        for n, n_devices in shard_devices.items()}
+    block = {"scores": proj_all[:few] @ v.T}
+    want = run_scoring(few_plans[1], lambda p, chunk: p["scores"][
+        chunk.users], block, TOPK, n_valid_cols=n_items, on_device=True)
+    for name, mesh in meshes.items():
+        got = run_scoring(few_plans[n_dev[name]], lambda p, chunk: p[
+            "scores"][chunk.users], block, TOPK, n_valid_cols=n_items,
+            on_device=True, mesh=mesh)
+        check(torch.equal(got, want), f"{name}: run_scoring per users shard "
+              f"== one device on a fixed {few} x {n_items} score block")
+    del block, few_plans
+
+    # ---- times: the scoring routes, one shard's kernel, the merge,
+    # CholeskyQR2 at the build's panel shape
+    if proj_all.is_cuda:
+        out["scoring_ms"] = {name: time_ms(lambda name=name: route(
+            name, True, SVDModel.proj_chunk, params), 5)
+            for name in ("single", *meshes)}
+        log("  scoring ms (proj_chunk + kernel + merge): " + ", ".join(
+            f"{k} {t:.3f}" for k, t in out["scoring_ms"].items()))
+    perm, inv = plan.pop_order(n_items)
+    panel = v.index_select(0, torch.as_tensor(perm, device=v.device))
+    shards = {}
+    for name in meshes:
+        per = -(-n_users // n_dev[name])
+        width = (n_items if n_model[name] == 1
+                 else pad_to_multiple(-(-n_items // n_model[name]), 32))
+        bits = plans[n_dev[name]].seen_bits(0, n_model[name] * width,
+                                            col_map=inv,
+                                            map_token=("pop", n_items))
+        n_valid = min(width, n_items)
+        shards[name] = mesh_shard_fields(
+            proj_all[:per].contiguous(), panel[:n_valid].contiguous(),
+            _bits_words(bits[:per], 0, n_valid), n_valid, device)
+        log(f"  {name} shard {per} x {n_valid} x {RANK}: " + json.dumps(
+            shards[name]))
+    out["shards"] = shards
+    half = -(-n_users // 2)
+    cand = [fused_score_topk(proj_all[:half].contiguous(), panel[lo:hi],
+                             torch.zeros((half, -(-(hi - lo) // 32)),
+                                         dtype=torch.int32, device=device),
+                             TOPK, return_values=True)
+            for lo, hi in ((0, n_items // 2), (n_items // 2, n_items))]
+    if proj_all.is_cuda:
+        out["merge_ms"] = time_ms(lambda: _merge_candidates(
+            [c[0] for c in cand], [c[1] for c in cand], TOPK,
+            proj_all.device), 20)
+        gen = torch.Generator(device=device).manual_seed(0)
+        tall = torch.randn((n_users, RANK + max(10, RANK)), generator=gen,
+                           device=device)
+        out["cholesky_qr2_ms"] = time_ms(lambda: cholesky_qr2(tall), 10)
+        tall_sharded = shard_rows(tall, mesh1)
+        out["cholesky_qr2_sharded_ms"] = time_ms(
+            lambda: cholesky_qr2(tall_sharded), 10)
+        out["householder_qr_ms"] = time_ms(lambda: torch.linalg.qr(tall), 10)
+        log(f"  merge {out['merge_ms']:.3f} ms; at {tuple(tall.shape)}: "
+            f"CholeskyQR2 {out['cholesky_qr2_ms']:.3f} ms, over 4 row "
+            f"shards {out['cholesky_qr2_sharded_ms']:.3f} ms, Householder "
+            f"QR {out['householder_qr_ms']:.3f} ms")
+    del cand
+
+    # ---- full_train_step on the 1-D mesh: factorize -> score -> hits
+    gen = torch.Generator(device=device).manual_seed(0)
+    omega = torch.randn((n_items, RANK + max(10, RANK)), generator=gen,
+                        device=device)
+    seen = (torch.as_tensor(rows[keep], device=device),
+            torch.as_tensor(cols[keep], device=device),
+            torch.ones(int(keep.sum()), dtype=torch.bool, device=device))
+    r_sharded = shard_rows(dense, mesh1)
+    # the row blocks' products against the whole block's, bit for bit
+    # (cuBLAS may pick another algorithm for fewer rows)
+    out["shard_proj_bitwise_equal"] = torch.equal(
+        r_sharded.blocks[0] @ v, (dense @ v)[:r_sharded.blocks[0].shape[0]])
+    with Timer() as t:
+        step = full_train_step(r_sharded, omega, r_sharded, *seen,
+                               hold_items_d, n_iter=POWER_ITERS, k=RANK,
+                               topk=TOPK)
+        step_hits = int(step.hit_count)
+    out["full_train_step_s"] = t.seconds
+    del r_sharded
+    single_recs = score_mask_topk_step(step.factors.v, dense, *seen, TOPK)
+    single_hits = int((single_recs == hold_items_d[:, None]).any(1).sum())
+    out.update(full_train_step_hits=step_hits,
+               single_device_hits=single_hits,
+               full_train_step_recs_agreement=(
+                   step.recommendations == single_recs).float().mean().item())
+    check(step_hits == single_hits, f"full_train_step hit count {step_hits} "
+          f"== its factors scored on one device ({single_hits})")
+    del single_recs, step
+
+    # ---- the models' mesh route through the data model: SVDModel with
+    # mesh= (2-D), against the same model on one device
+    data = RecommenderData(events_frame(rows_d, cols_d, vals_d), "userid",
+                           "movieid", "rating", seed=0, verbose=False)
+    data.warm_start = False
+    data.test_ratio = 0.05
+    data.holdout_size = 1
+    data.prepare()
+    models = {}
+    for name, mesh in (("single", None), ("mesh_2d", meshes["mesh_2d"])):
+        model = SVDModel(data, device=device, mesh=mesh)
+        model.verbose = False
+        model.rank = RANK
+        model.svd_tol = None
+        model.svd_iters = POWER_ITERS
+        model.svd_power_dtype = torch.bfloat16
+        before = fused_score_topk.launches
+        out.setdefault("model_hr10", {})[name] = model.evaluate(
+            "relevance").hr
+        out.setdefault("model_launches", {})[name] = (
+            fused_score_topk.launches - before)
+        out.setdefault("model_build_s", {})[name] = model.training_time[-1]
+        models[name] = model
+    dist = models["mesh_2d"]
+    check(isinstance(data._device_matrix_cache[dist._last_dense_key],
+                     ShardedRows),
+          "SVDModel(mesh=): the dense block is cached row-sharded")
+    if proj_all.is_cuda:
+        expected = 4 * len(dist._test_plan.chunks)
+        check(out["model_launches"]["mesh_2d"] == expected,
+              f"SVDModel(mesh=): {out['model_launches']['mesh_2d']} "
+              f"launches == 2 x 2 shards x chunks ({expected})")
+    out["model_max_sin"] = principal_angles_max_sin(
+        dist.factors["movieid"].double(),
+        models["single"].factors["movieid"].double())
+    check(abs(out["model_hr10"]["mesh_2d"] - out["model_hr10"]["single"])
+          <= 1e-3, f"SVDModel(mesh=) HR@10 {out['model_hr10']['mesh_2d']:.5f}"
+          f" within 1e-3 of one device's {out['model_hr10']['single']:.5f}")
+    a, b = dist.recommendations, models["single"].recommendations
+    out["model_top10_overlap"] = float(
+        (a[:, :, None] == b[:, None, :]).sum((1, 2)).mean() / a.shape[1])
+    check(out["model_top10_overlap"] >= 0.99, f"SVDModel(mesh=) top-10 "
+          f"overlap with one device's {out['model_top10_overlap']:.5f} "
+          ">= 0.99")
+    log(f"  SVDModel mesh_2d vs single: HR@10 {json.dumps(out['model_hr10'])}"
+        f", builds {json.dumps(out['model_build_s'])} s, principal-angle "
+        f"sine {out['model_max_sin']:.3e}")
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if proj_all.is_cuda else None)
+    return out
 
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -1007,7 +1399,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4, 5) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-6) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
@@ -1059,17 +1451,37 @@ def main() -> int:
     log(f"  phase 5: {time.perf_counter() - t0:.2f} s")
     log("  " + json.dumps({"sweep": sweep}))
 
+    log("phase 6: PureSVD rank 50 at ML-10M geometry over (4, 1) and "
+        "(2, 2) meshes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(ML10M_GEOMETRY)
+    for name, launched in mesh["launches"].items():
+        check(launched == mesh["expected_launches"][name],
+              f"{name}: the counted drive launched the kernel {launched}x "
+              f"== user shards x item shards x chunks")
+    log(f"  phase 6: {time.perf_counter() - t0:.2f} s")
+    log("  " + json.dumps({"mesh": mesh}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
                                                 top.pop("bytes"))
     top["max_abs_err"] = sweep["max_abs_err"]
+    shards = {}
+    for name, fields in mesh["shards"].items():
+        fields = dict(fields)
+        fields["bound_ms"], fields["bound_by"] = bound_ms(
+            fields.pop("flop"), fields.pop("bytes"))
+        shards[name] = fields
     log(json.dumps({"kernels": [{
         "name": "fused_score_topk", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": main["launches"],
         "launches_by_path": {"main": main["launches"], "cv": cv["launches"],
-                             "sweep": sweep["launches"]},
+                             "sweep": sweep["launches"],
+                             **mesh["launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,
@@ -1077,7 +1489,8 @@ def main() -> int:
         "topk_ms": main["stage_ms"]["topk_baseline"],
         "phase_ms": main["phase_ms"],
         "clocks_under_load": main["kernel_clocks"],
-        "ptxas": ptxas, "sweep_top_rank": top}], "build_s": build_s}))
+        "ptxas": ptxas, "sweep_top_rank": top, "mesh_shard": shards,
+        "mesh_merge_ms": mesh.get("merge_ms")}], "build_s": build_s}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,11 @@ Counterpart of :class:`polara_tpu.models.base.RecommenderModel` (reference
   (:mod:`polara_tpu_torch.ops.scoring`) and ``evaluate()``.
 
 ``device`` (default: the card; without one, name the CPU) is where the
-training block, the factors and the scoring run.  This module imports no
-pandas; it reads the data model's frames only through their methods.
+training block, the factors and the scoring run.  ``mesh`` (or the default
+mesh of :func:`~polara_tpu_torch.runtime.mesh.use_mesh`) routes the build
+and the scoring over a device mesh; its first entry should be ``device``,
+where the results gather.  This module imports no pandas; it reads the
+data model's frames only through their methods.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from polara_tpu_torch.ops.scoring import (ChunkedTestData, TestChunk,
 from polara_tpu_torch.ops.sparse import (CooMatrix, coo_from_arrays,
                                          dense_from_coo)
 from polara_tpu_torch.runtime.device import resolve_device
+from polara_tpu_torch.runtime.mesh import (Mesh, get_default_mesh,
+                                           shard_device_count)
 
 
 def _flush_before_build(build_func):
@@ -56,9 +61,13 @@ class RecommenderModel:
             cls.build = _flush_before_build(cls.__dict__["build"])
 
     def __init__(self, recommender_data, feedback_threshold=None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[Mesh] = None):
         self.data = recommender_data
         self.device = resolve_device(device, type(self).__name__)
+        # an explicit mesh routes factorization and scoring through the
+        # distributed paths; None defers to the framework default
+        self.mesh = mesh
         self._recommendations = None
         self._test_plan: Optional[ChunkedTestData] = None
         self._scoring_device_output = False
@@ -157,6 +166,14 @@ class RecommenderModel:
 
     def get_base_configuration(self) -> Dict[str, Any]:
         return {attr: getattr(self, attr) for attr in self._config}
+
+    @property
+    def active_mesh(self) -> Optional[Mesh]:
+        """The mesh this model computes over: its own ``mesh`` if set, else
+        the framework default (``runtime.mesh.use_mesh``)."""
+        if self.mesh is not None:
+            return self.mesh
+        return get_default_mesh()
 
     # --- training-data access -----------------------------------------------
 
@@ -257,7 +274,9 @@ class RecommenderModel:
         # invalidated whenever the split changes
         threshold = (None if self.data.warm_start
                      else self.feedback_threshold)
-        key = (threshold, self.scores_multiplier, self.device)
+        n_shards, n_devices = self._mesh_layout()
+        key = (threshold, self.scores_multiplier, self.device, n_shards,
+               n_devices)
         cache = self.data.__dict__.setdefault("_test_plan_cache", {})
         hit = cache.get(key)
         if hit is not None:
@@ -267,9 +286,21 @@ class RecommenderModel:
         plan = ChunkedTestData.build(
             user_rows, item_idx, np.asarray(feedback, dtype=np.float64),
             n_users=test_shape[0], n_items=test_shape[1],
-            scores_multiplier=self.scores_multiplier, device=self.device)
+            scores_multiplier=self.scores_multiplier, device=self.device,
+            n_shards=n_shards, n_devices=n_devices)
         cache[key] = (plan, test_users)
         return plan, test_users
+
+    def _mesh_layout(self) -> Tuple[int, int]:
+        """The active mesh's users-axis size and the distinct devices its
+        shards lie on ((1, 1) without a mesh): the score block row-shards
+        over the axis, so chunks align to its size and their budget
+        scales by the device count."""
+        mesh = self.active_mesh
+        if mesh is None:
+            return 1, 1
+        return (int(mesh.shape[mesh.axis_names[0]]),
+                shard_device_count(mesh))
 
     # --- scoring -------------------------------------------------------------
 
@@ -281,6 +312,12 @@ class RecommenderModel:
     # (proj_chunk + params["item_panel"]) which unlocks the fused kernel;
     # None means dense-score models (unfused path only).
     proj_chunk = None
+
+    # score_chunk scores each row from that user's events alone, so under
+    # a mesh each users shard is scored on its own device; False for
+    # scorers that draw one random stream per chunk (a shard would draw
+    # another), which score whole chunks on the model's device
+    row_local_scores = True
 
     @classmethod
     def _fused_scoring_capable(cls) -> bool:
@@ -311,22 +348,30 @@ class RecommenderModel:
     def get_recommendations(self):
         if self.verify_integrity:
             self.verify_data_integrity()
-        if self._test_plan is None:
+        if (self._test_plan is None
+                # the plan survives rebuilds, but the chunk budget depends
+                # on the mesh: re-plan when the mesh changed since
+                or getattr(self, "_test_plan_layout", None)
+                != self._mesh_layout()):
             self._test_plan, self._test_users = self._build_test_plan()
+            self._test_plan_layout = self._mesh_layout()
         plan, test_users = self._test_plan, self._test_users
         params = dict(self.score_params())
         params["test_users"] = torch.as_tensor(test_users,
                                                device=self.device)
+        mesh = self.active_mesh
         if self.uses_fused_scoring(params):
             return run_scoring_fused(
                 plan, type(self).proj_chunk, params, topk=self.topk,
                 filter_seen=self.filter_seen, n_valid_cols=plan.n_items,
                 on_device=self._scoring_device_output,
-                item_order=defaults.get_default("fused_item_order"))
+                item_order=defaults.get_default("fused_item_order"),
+                mesh=mesh)
         return run_scoring(plan, type(self).score_chunk, params,
                            topk=self.topk, filter_seen=self.filter_seen,
                            n_valid_cols=plan.n_items,
-                           on_device=self._scoring_device_output)
+                           on_device=self._scoring_device_output,
+                           mesh=mesh if self.row_local_scores else None)
 
     # --- single-user convenience ---------------------------------------------
 

@@ -76,6 +76,8 @@ class RandomModel(RecommenderModel):
     """'RND': uniform random scores, deterministic per (seed, chunk)
     (reference ``models.py:671-690``)."""
 
+    row_local_scores = False  # one stream per chunk
+
     def __init__(self, *args, **kwargs):
         self.seed = kwargs.pop("seed", None)
         super().__init__(*args, **kwargs)
@@ -146,6 +148,8 @@ class NonPersonalized(RecommenderModel):
     """Deprecated most-popular / random / top-score model
     (reference ``models.py:607-646``), kept for API parity; use
     :class:`PopularityModel` or :class:`RandomModel` instead."""
+
+    row_local_scores = False  # "random" draws one stream per chunk
 
     def __init__(self, kind, *args, **kwargs):
         warnings.warn("This is a deprecated method. Use either "

@@ -6,7 +6,9 @@ Counterpart of :mod:`polara_tpu.models.svd` (reference
 or block Krylov (:mod:`polara_tpu_torch.ops.rsvd`) over the dense training
 block (or its COO operator past the memory budget), and scoring as
 ``R_test · V · Vᵀ`` with ``proj = R_test · V`` gathered per chunk through
-``index_add_``.  The streaming tiers are not ported yet.
+``index_add_``.  Under a mesh the dense block and its bf16 copy shard by
+rows over the ``users`` axis and the solve orthogonalizes with
+CholeskyQR2.  The streaming tiers are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from polara_tpu_torch.ops.scoring import TestChunk
 from polara_tpu_torch.ops.sparse import (CooMatrix, MatmulOperator,
                                          dense_operator,
                                          dense_power_operator)
+from polara_tpu_torch.runtime.mesh import shard_device_count, shard_rows
 from polara_tpu_torch.runtime.timing import track_time
 
 
@@ -74,28 +77,34 @@ class SVDModel(RecommenderModel):
             self.factors = dict(**self.factors)
             self.factors[entity] = factor[..., :rank]
 
-    def _dense_operands(self, matrix: CooMatrix):
+    def _dense_operands(self, matrix: CooMatrix, mesh=None):
         """The dense block (and its power operator) for this model's
         scaling, cached on the data object.
 
-        The unscaled block is the plain dense training matrix, shared with
-        every model on the data; a scaled block is cached under
-        ``("svd_dense", device, signature)``.  When this model's key
-        changes, only its own previous entries (block and power operator)
-        are evicted, so a ScaledSVD sweep never accumulates ~GB blocks and
+        The unscaled single-device block is the plain dense training
+        matrix, shared with every model on the data; any other block is
+        cached under ``("svd_dense", mesh or device, signature)``, a mesh's
+        row-sharded over its ``users`` axis (zero rows pad it to a multiple
+        of the axis; they leave AᵀA, hence s and V, unchanged).  When this
+        model's key changes, only its own previous entries (block and power
+        operator) are evicted, so a sweep never accumulates ~GB blocks and
         never drops a sibling's.  (The signature is one element of the key,
         so the unscaled key prefixes no scaled one.)"""
         cache = self.data.__dict__.setdefault("_device_matrix_cache", {})
-        key = ("svd_dense", self.device, self._scaling_signature())
+        key = ("svd_dense", self.device if mesh is None else mesh,
+               self._scaling_signature())
         if key != getattr(self, "_last_dense_key", None):
             self._evict_dense_entries(cache)
             self._last_dense_key = key
-        if self._scaling_signature() == ():
+        if mesh is None and self._scaling_signature() == ():
             dense = self.get_training_matrix(dense=True)
         else:
             dense = cache.get(key)
             if dense is None:
-                dense = cache[key] = matrix.to_dense()
+                dense = matrix.to_dense()
+                if mesh is not None:
+                    dense = shard_rows(dense, mesh)
+                cache[key] = dense
         power_op = None
         if self.svd_power_dtype is not None:
             lo_key = key + ("power", self.svd_power_dtype)
@@ -107,20 +116,38 @@ class SVDModel(RecommenderModel):
 
     def build(self, operator: Optional[MatmulOperator] = None,
               return_factors: str = "vh"):
+        mesh = self.active_mesh
         power_op = None
         if operator is not None:
             svd_matrix = operator
         else:
             matrix = self.get_training_matrix()
+            # the budget is per device: under a mesh the block shards over
+            # the distinct devices of its users axis
             budget = defaults.get_default("hbm_score_budget_gb") * 2 ** 30
+            if mesh is not None:
+                budget *= shard_device_count(mesh)
             n_rows, n_cols = matrix.shape
             itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+            block = self.rank + (self.svd_oversample
+                                 if self.svd_oversample is not None
+                                 else max(10, self.rank))
             if n_rows * n_cols * itemsize <= budget:
-                dense, power_op = self._dense_operands(matrix)
+                dense, power_op = self._dense_operands(matrix, mesh)
                 svd_matrix = dense_operator(dense)
+            elif mesh is not None and matrix.nnz * block * itemsize > budget:
+                raise NotImplementedError(
+                    "SVDModel under a mesh beyond the memory budget needs "
+                    "the event-sharded streaming rSVD "
+                    "(distributed_chunked_rsvd), not ported yet (ROADMAP "
+                    "A12/A16); raise hbm_score_budget_gb or build without "
+                    "a mesh")
             else:
                 svd_matrix = matrix.operator()
 
+        # CholeskyQR2 shards cleanly (a b x b Gram psum); Householder QR
+        # would gather the whole panel onto one device
+        qr_method = "cholesky2" if mesh is not None else None
         self.svd_info = {}
         with track_time(self.training_time, verbose=self.verbose,
                         model=self.method):
@@ -129,12 +156,13 @@ class SVDModel(RecommenderModel):
                     svd_matrix, self.rank,
                     depth=max(2, self.svd_iters // 2),
                     oversample=self.svd_oversample, seed=self.seed,
-                    power_operator=power_op)
+                    qr_method=qr_method, power_operator=power_op)
             else:
                 result = randomized_svd(
                     svd_matrix, self.rank, oversample=self.svd_oversample,
                     n_iter=self.svd_iters, tol=self.svd_tol, seed=self.seed,
-                    power_operator=power_op, info=self.svd_info)
+                    qr_method=qr_method, power_operator=power_op,
+                    info=self.svd_info)
         self._store_factors(result, return_factors)
 
     def _store_factors(self, result, return_factors: str) -> None:

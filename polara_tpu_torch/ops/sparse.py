@@ -5,6 +5,11 @@ default at MovieLens scale — ML-10M dense f32 is ~2.9 GB), its bf16 copy
 for the power passes, and a row-sorted COO matrix whose products run as
 gather -> multiply -> ``index_add_``.  Both implement the same
 :class:`MatmulOperator` protocol consumed by the randomized SVD.  The
+dense operators also take a row-sharded block
+(:class:`~polara_tpu_torch.runtime.mesh.ShardedRows`): ``mm`` runs one
+local product per shard and returns a sharded panel, ``rmm`` sums the
+shards' partials with ``psum``, so the only cross-shard traffic is the
+(n x b) ``rmm`` partials (and the b x b Grams of CholeskyQR2).  The
 streaming (chunked, tiled, split-head) operators are not ported yet.
 """
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from polara_tpu_torch.runtime.device import resolve_device
+from polara_tpu_torch.runtime.mesh import ShardedRows, psum
 
 Device = Union[str, torch.device, None]
 
@@ -59,10 +65,27 @@ def _coo_rmm(operands, x, out_dim):
     return out.index_add_(0, cols, vals[:, None].to(x.dtype) * x[rows])
 
 
-def dense_operator(matrix: torch.Tensor) -> MatmulOperator:
-    return MatmulOperator(shape=tuple(matrix.shape), mm_fn=_dense_mm,
-                          rmm_fn=_dense_rmm, operands=(matrix,),
-                          dtype=matrix.dtype)
+def _sharded_mm(operands, x, out_dim):
+    (m,) = operands
+    return m.map(lambda block: block @ x.to(block.device))
+
+
+def _sharded_rmm(operands, x, out_dim):
+    (m,) = operands
+    return psum([block.T @ part for block, part in zip(m.blocks, x.blocks)],
+                m.device)
+
+
+def dense_operator(matrix: Union[torch.Tensor, ShardedRows]
+                   ) -> MatmulOperator:
+    """The dense block as an operator; a :class:`ShardedRows` block gives
+    the sharded products (``mm`` -> sharded panel, ``rmm`` of a sharded
+    panel -> its ``psum``) over the padded shape."""
+    sharded = isinstance(matrix, ShardedRows)
+    return MatmulOperator(shape=tuple(matrix.shape),
+                          mm_fn=_sharded_mm if sharded else _dense_mm,
+                          rmm_fn=_sharded_rmm if sharded else _dense_rmm,
+                          operands=(matrix,), dtype=matrix.dtype)
 
 
 def _dense_lowp_mm(operands, x, out_dim):
@@ -75,7 +98,19 @@ def _dense_lowp_rmm(operands, x, out_dim):
     return (m.T @ x.to(m.dtype)).to(x.dtype)
 
 
-def dense_power_operator(matrix: torch.Tensor,
+def _sharded_lowp_mm(operands, x, out_dim):
+    (m,) = operands
+    return m.map(lambda block: (block @ x.to(block.device, block.dtype)
+                                ).to(x.dtype))
+
+
+def _sharded_lowp_rmm(operands, x, out_dim):
+    (m,) = operands
+    return psum([(block.T @ part.to(block.dtype)).to(part.dtype)
+                 for block, part in zip(m.blocks, x.blocks)], m.device)
+
+
+def dense_power_operator(matrix: Union[torch.Tensor, ShardedRows],
                          dtype: torch.dtype = torch.bfloat16
                          ) -> MatmulOperator:
     """Low-precision operator for the randomized SVD's power passes.
@@ -85,8 +120,16 @@ def dense_power_operator(matrix: torch.Tensor,
     precision: each panel is cast down for the product and the result
     cast back up.  Pass as ``randomized_svd(..., power_operator=...)``
     beside the full-precision operator, which the refinement steps and
-    the final Rayleigh–Ritz projection read.
+    the final Rayleigh–Ritz projection read.  A :class:`ShardedRows`
+    block gives a sharded copy (each shard casts its own block; the
+    partials of ``rmm`` are summed in the panel's precision).
     """
+    if isinstance(matrix, ShardedRows):
+        return MatmulOperator(shape=tuple(matrix.shape),
+                              mm_fn=_sharded_lowp_mm,
+                              rmm_fn=_sharded_lowp_rmm,
+                              operands=(matrix.map(lambda b: b.to(dtype)),),
+                              dtype=matrix.dtype)
     lo = matrix.to(dtype)
     return MatmulOperator(shape=tuple(matrix.shape), mm_fn=_dense_lowp_mm,
                           rmm_fn=_dense_lowp_rmm, operands=(lo,),

@@ -1,11 +1,16 @@
-"""Runtime support: randomness, memory planning, timing, conversion,
-checkpoints and display helpers."""
+"""Runtime support: randomness, memory planning, device meshes, timing,
+conversion, checkpoints and display helpers."""
 from polara_tpu_torch.runtime.checkpoint import load_factors, save_factors
 from polara_tpu_torch.runtime.display import print_frames, suppress_stdout
 from polara_tpu_torch.runtime.memory import plan_user_chunks, range_division
+from polara_tpu_torch.runtime.mesh import (get_default_mesh, make_mesh,
+                                           set_default_mesh, shard_rows,
+                                           use_mesh, user_sharding)
 from polara_tpu_torch.runtime.rng import check_random_state
 from polara_tpu_torch.runtime.timing import format_elapsed_time, track_time
 
 __all__ = ["track_time", "format_elapsed_time", "check_random_state",
            "plan_user_chunks", "range_division", "save_factors",
-           "load_factors", "print_frames", "suppress_stdout"]
+           "load_factors", "print_frames", "suppress_stdout", "make_mesh",
+           "user_sharding", "shard_rows", "set_default_mesh",
+           "get_default_mesh", "use_mesh"]

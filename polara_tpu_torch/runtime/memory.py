@@ -30,16 +30,19 @@ def plan_user_chunks(n_users: int, n_items: int,
                      itemsize: int = 4,
                      budget_gb: float | None = None,
                      max_chunk: int | None = None,
-                     n_shards: int = 1) -> List[Tuple[int, int]]:
+                     n_shards: int = 1,
+                     n_devices: int | None = None) -> List[Tuple[int, int]]:
     """Plan (start, stop) user slices whose dense score block fits the budget.
 
     ``scores_multiplier`` inflates the estimate for models whose scores
-    carry an extra axis; ``n_shards`` scales the budget for a row-sharded
-    score block and aligns chunk sizes to it.
+    carry an extra axis; ``n_shards`` aligns chunk sizes for a row-sharded
+    score block, and the budget scales by ``n_devices``, the distinct
+    devices its shards lie on (default ``n_shards``, as in the JAX
+    package, where every shard is a device of its own).
     """
     budget = (budget_gb if budget_gb is not None
               else get_default("hbm_score_budget_gb")) * (1024 ** 3)
-    budget *= max(int(n_shards), 1)
+    budget *= max(int(n_shards if n_devices is None else n_devices), 1)
     row_bytes = n_items * scores_multiplier * itemsize
     chunk = int(budget // max(row_bytes, 1))
     if chunk <= 0:

@@ -41,12 +41,8 @@ UNPORTED = {
         "PaddedRows", "inner_product_at", "pad_rows",
     },
     "polara_tpu.parallel": {
-        "cholesky_qr2", "distributed_randomized_svd",
         "distributed_chunked_rsvd", "distributed_ials",
         "distributed_ials_events", "distributed_bpr", "distributed_hooi",
-        "score_mask_topk_step", "sharded_score_topk_2d", "full_train_step",
-        "make_mesh", "user_sharding", "shard_rows", "set_default_mesh",
-        "get_default_mesh", "use_mesh",
     },
     "polara_tpu.preprocessing": {
         "dataframes", "features", "matrices",
@@ -56,10 +52,9 @@ UNPORTED = {
     },
     "polara_tpu.runtime": {
         "timed_blocked", "profiler_trace", "enable_compilation_cache",
-        "random_seeds", "key_from_seed", "make_mesh", "user_sharding",
-        "shard_rows", "set_default_mesh", "get_default_mesh", "use_mesh",
-        "pad_dim", "array_split", "get_chunk_size", "get_available_memory",
-        "read_npz_from_url", "ServingBundle",
+        "random_seeds", "key_from_seed", "pad_dim", "array_split",
+        "get_chunk_size", "get_available_memory", "read_npz_from_url",
+        "ServingBundle",
     },
 }
 

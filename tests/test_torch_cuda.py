@@ -113,3 +113,53 @@ def test_zero_padded_rank_gives_truncated_picks(rank, width):
     torch.cuda.synchronize()
     assert torch.equal(pi, ti)
     assert torch.equal(pv, tv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("filter_seen", [True, False])
+def test_logical_mesh_on_one_card_equals_single_device(shape, filter_seen):
+    """A mesh whose entries go to the visible cards in turn (on one card a
+    logical mesh, every entry ``cuda:0``): the same ids and values as the
+    single-device route on one projection (dyadic factors, exact scores),
+    with one kernel launch per shard and chunk."""
+    from polara_tpu_torch.ops.scoring import (ChunkedTestData,
+                                              run_scoring_fused)
+    from polara_tpu_torch.runtime.mesh import make_mesh
+    device = _cuda()
+    rs = np.random.RandomState(5)
+    n_users, n_items, rank, chunk_users = 301, 1001, 16, 160
+    proj = torch.as_tensor(np.clip(np.round(rs.randn(n_users, rank) * 4) / 4,
+                                   -2, 2), dtype=torch.float32, device=device)
+    panel = torch.as_tensor(np.clip(np.round(rs.randn(n_items, rank) * 4) / 4,
+                                    -2, 2), dtype=torch.float32,
+                            device=device)
+    pairs = np.unique(np.stack([rs.randint(0, n_users, 9000),
+                                rs.randint(0, n_items, 9000)], 1), axis=0)
+    plan = ChunkedTestData.build(pairs[:, 0], pairs[:, 1],
+                                 np.ones(len(pairs)), n_users, n_items,
+                                 chunk_users=chunk_users, device=device)
+    params = {"item_panel": panel, "proj": proj}
+
+    def fixed_proj(params, chunk):
+        return params["proj"][chunk.users]
+
+    def route(mesh):
+        return run_scoring_fused(plan, fixed_proj, params, 10,
+                                 filter_seen=filter_seen,
+                                 n_valid_cols=n_items, on_device=True,
+                                 item_order="popularity", mesh=mesh,
+                                 return_values=True)
+
+    want_vals, want_ids = route(None)
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", i % n_cards)
+                              for i in range(shape[0] * shape[1])],
+                     shape=shape)
+    before = tf.fused_score_topk.launches
+    vals, ids = route(mesh)
+    torch.cuda.synchronize()
+    assert (tf.fused_score_topk.launches - before
+            == shape[0] * shape[1] * len(plan.chunks))
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(vals, want_vals)

@@ -12,6 +12,7 @@ IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
            "polara_tpu_torch.evaluation.metrics, "
            "polara_tpu_torch.models.baselines, polara_tpu_torch.native, "
            "polara_tpu_torch.ops.similarity, polara_tpu_torch.runtime, "
+           "polara_tpu_torch.runtime.mesh, polara_tpu_torch.parallel, "
            "polara_tpu_torch.evaluation.plotting")
 # the pandas tier: the data model and the experiment pipelines
 PANDAS_TIER = ("import polara_tpu_torch.data, "
