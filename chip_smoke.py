@@ -18,9 +18,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    iteration, ``run_scoring_fused`` (popularity item order) ->
    ``metrics_core``.  Gates: the kernel ran, ids in range, ``fused_ok``,
    triplet residual, metric delta and top-10 overlap against exact f64
-   factors from the Gram's eigendecomposition.  At the main path's own
-   inputs: the kernel against its plain version, its time, and the times
-   of its measurement variants (``phase_ms``).
+   factors from the Gram's eigendecomposition; two ``proj_chunk`` calls,
+   and two COO ``mm``/``rmm`` calls, give identical bits.  At the main
+   path's own inputs: the kernel against its plain version, its time, the
+   times of its measurement variants (``phase_ms``), and ``proj_chunk``'s
+   sorted segment sum beside three other routes (``projection_routes``).
 4. Cross-validation at ML-1M geometry through the data model:
    ``run_cv_experiment`` over folds 1..5 with ``topk_test`` (top-10/5)
    for PureSVD and PureSVD-s (rank 50), MP and item-to-item, at
@@ -53,9 +55,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
    row-sharded block, launches 4 x chunks and matches one device's HR@10
    within 1e-3 and top-10 within 0.99 overlap.  Times: the builds,
    CholeskyQR2 at (users x 100), each route's scoring, one shard's kernel
-   with its bound, and the two-stage merge.
+   with its bound and the ``torch.topk`` route at its shape, and the
+   two-stage merge.
+7. The factor models on phase 3's data and split, scored through the
+   kernel like PureSVD: iALS rank 50, 15 epochs (``benchmarks/
+   bpr_quality.py``'s configuration) on the dense tier and on the event
+   tier from one start, BPR rank 50 (lr 0.05, batch 4096, 10 epochs), PMF
+   at its defaults and popularity; ``distributed_ials`` on a (4, 1) mesh
+   against two single-device epochs, the iALS factors scored on (4, 1)
+   and (2, 2) meshes, ``distributed_bpr("exact")`` against ``bpr_train``
+   for two epochs; iALS warm start through the data model at ML-1M
+   geometry.  Gates: the kernel ran for each model; ``fused_ok`` for iALS
+   and BPR; iALS and BPR beat popularity's HR@10; BPR's batch AUC rises
+   and ends above 0.85; PMF's RMSE falls over 5 epochs; the two iALS
+   tiers agree (top-10 overlap, HR@10); the mesh trainers agree with one
+   device's; the mesh scorings equal one device's ids and values; the
+   warm-start metrics are finite and beat popularity.  Times: seconds
+   per epoch, an iALS half-sweep split into its parts, event staging,
+   BPR pairs/s, peak memory.
 
-pandas is required (phases 4-6): without it the script exits non-zero
+pandas is required (phases 4-7): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -65,7 +84,7 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-6;
+and then the score kernel, and ``launches_by_path`` those of phases 3-7;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
 ``mesh_shard`` at one shard of each mesh, and ``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
@@ -511,7 +530,62 @@ def main_path(geometry, device="cuda", verify_users=VERIFY_USERS):
                                + proj.shape[0] * -(-n_items // 32)
                                + 2 * proj.shape[0] * TOPK)
     out["stage_ms"] = stage_breakdown(dense, params, head, proj, panel, bits)
+    out["projection_routes"] = projection_routes(head, v)
+    # C2: the card's projections and COO products give the same bits on
+    # every call
+    check(torch.equal(SVDModel.proj_chunk(params, head),
+                      SVDModel.proj_chunk(params, head)),
+          "two proj_chunk calls give bit-identical projections")
+    op = matrix.operator()
+    check(torch.equal(op.mm(v), op.mm(v))
+          and torch.equal(op.rmm(result.u), op.rmm(result.u)),
+          "two COO mm and two COO rmm calls give bit-identical products")
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def projection_routes(chunk, v, reps=10):
+    """``proj = R_chunk · V`` by the sorted segment sum that
+    ``SVDModel.proj_chunk`` runs and by three other routes at the main
+    path's inputs: warm ms (CUDA events), whether two calls give the same
+    bits, and the largest difference from the segment sum's result."""
+    import torch
+    from polara_tpu_torch.models.svd import SVDModel
+    n_rows = chunk.users.shape[0]
+    rows = torch.where(chunk.valid, chunk.rows, n_rows - 1)
+    vals = torch.where(chunk.valid, chunk.vals, 0.0)
+
+    def terms():
+        return vals[:, None] * v[chunk.cols]
+
+    def empty():
+        return torch.zeros((n_rows, v.shape[1]), dtype=v.dtype,
+                           device=v.device)
+
+    def csr():
+        counts = torch.bincount(rows, minlength=n_rows)
+        crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        return torch.sparse_csr_tensor(crow, chunk.cols, vals,
+                                       size=(n_rows, v.shape[0]),
+                                       check_invariants=False) @ v
+
+    routes = {
+        "segment_reduce": lambda: SVDModel.proj_chunk({"item_factors": v},
+                                                      chunk),
+        "csr_sparse_mm": csr,
+        "index_put_accumulate": lambda: empty().index_put_(
+            (rows,), terms(), accumulate=True),
+        "index_add": lambda: empty().index_add_(0, rows, terms()),
+    }
+    want = routes["segment_reduce"]()
+    out = {}
+    for name, fn in routes.items():
+        first, second = fn(), fn()
+        out[name] = {"ms": time_ms(fn, reps) if v.is_cuda else None,
+                     "bit_reproducible": bool(torch.equal(first, second)),
+                     "max_abs_diff_vs_segment_reduce":
+                         (first - want).abs().max().item()}
+    log("  proj_chunk routes: " + json.dumps(out))
     return out
 
 
@@ -1025,10 +1099,22 @@ def mesh_shard_fields(proj, panel, bits, n_valid, device):
         fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
             proj, panel, bits, TOPK, n_valid_cols=n_valid), 3)
         fields["library_ms"] = time_ms(lambda: proj @ panel.T, 20)
+        fields["topk_ms"] = time_ms(lambda: topk_route(proj, panel, bits,
+                                                       n_valid), 20)
     fields["flop"] = 2 * n_users * n_valid * rank
     fields["bytes"] = 4 * (proj.numel() + n_valid * rank
                            + n_users * -(-n_valid // 32) + 2 * n_users * TOPK)
     return fields
+
+
+def topk_route(proj, panel, bits, n_valid):
+    """The library route to the kernel's function: cuBLAS scores, the seen
+    mask, ``torch.topk`` (no tie order promised)."""
+    import torch
+    from polara_tpu_torch.ops.fused_topk import seen_mask
+    s = proj @ panel[:n_valid].T
+    s.masked_fill_(seen_mask(bits, n_valid), -torch.inf)
+    return torch.topk(s, TOPK, dim=1)
 
 
 def mesh_phase(geometry, device="cuda"):
@@ -1346,6 +1432,339 @@ def mesh_phase(geometry, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7: the factor models
+# --------------------------------------------------------------------------
+
+IALS = dict(alpha=1.0, weight="log2", epsilon=1.0, reg=0.01)
+IALS_EPOCHS, BPR_EPOCHS, BPR_LR, BPR_BATCH = 15, 10, 0.05, 4096
+
+
+def _rank_metrics(recs, hold_items):
+    """HR@k, MRR@k and NDCG@k of one held-out item per user."""
+    import torch
+    from polara_tpu_torch.evaluation.metrics import metrics_core
+    n = recs.shape[0]
+    ones = torch.ones((n, 1), dtype=torch.bool, device=recs.device)
+    out = metrics_core(recs, hold_items[:, None],
+                       torch.ones((n, 1), dtype=torch.float64,
+                                  device=recs.device), ones, ones,
+                       topk=recs.shape[1], switch_positive=0.0,
+                       alternative=True, has_split=False, penalty=0.0)
+    return {name: out[name].item() for name in ("hr", "mrr", "ndcg")}
+
+
+def _fused_gap(plan, user, item, recs, n_items, verify_users=VERIFY_USERS):
+    """Phase 3's ``fused_ok`` measure on a factor model: the kernel's picks
+    for the first users against the plain version's, re-scored in f64,
+    relative to the slice's largest plain score."""
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk_reference,
+                                                 pack_seen_bits)
+    head = plan.chunks[0]
+    proj = user[:verify_users].contiguous()
+    sel = head.valid & (head.rows < proj.shape[0])
+    bits = pack_seen_bits(head.rows[sel], head.cols[sel], proj.shape[0],
+                          n_items)
+    plain = fused_score_topk_reference(proj, item, bits, TOPK)
+    s64 = proj.double() @ item.double().T
+    s_plain = s64.gather(1, plain.long())
+    s_kern = s64.gather(1, recs[:proj.shape[0]].long())
+    scale = max(s_plain.abs().max().item(), 1e-6)
+    return (s_plain - s_kern).abs().max().item() / scale
+
+
+def _overlap(a, b):
+    """Mean share of each row's ids that the other row also holds."""
+    return ((a[:, :, None] == b[:, None, :]).sum((1, 2)).double()
+            / a.shape[1]).mean().item()
+
+
+def ials_split_ms(dense, item, batch_rows, reps=5):
+    """One iALS user half-sweep at these inputs (CUDA events), and its three
+    parts each timed alone on one batch of ``batch_rows`` users and scaled
+    by the batch count: the confidence transform, the weighted Gram
+    product, and the batched Cholesky factorization plus solve."""
+    import torch
+    from polara_tpu_torch.ops import implicit as imp
+    n_users = dense.shape[0]
+    n_batches = -(-n_users // batch_rows)
+    blk = dense[:batch_rows]
+    cm1 = imp.confidence(blk, IALS["alpha"], IALS["weight"],
+                         IALS["epsilon"]).contiguous()
+    gram = imp._gram(item, IALS["reg"])
+    a = gram[None] + torch.matmul((cm1[:, :, None] * item[None]).transpose(
+        1, 2), item)
+    rhs = torch.where(cm1 > 0, cm1 + 1.0, 0.0) @ item
+    failures = []
+
+    def weighted_gram():
+        return torch.matmul((cm1[:, :, None] * item[None]).transpose(1, 2),
+                            item)
+
+    parts = {
+        "confidence": lambda: imp.confidence(blk, IALS["alpha"],
+                                             IALS["weight"],
+                                             IALS["epsilon"]).contiguous(),
+        "weighted_gram": weighted_gram,
+        "cholesky_solve": lambda: imp._cholesky_solve(a, rhs, failures),
+    }
+    out = {name: time_ms(fn, reps) * n_batches for name, fn in parts.items()}
+    out["user_half_sweep"] = time_ms(lambda: imp._ials_sweep(
+        dense, item, IALS["alpha"], IALS["epsilon"], IALS["reg"],
+        IALS["weight"], batch_rows, axis=0), 2)
+    out["batch_rows"], out["n_batches"] = batch_rows, n_batches
+    imp._raise_if_failed(failures)
+    return out
+
+
+def factor_phase(geometry, warm_geometry, device="cuda"):
+    """Phase 7: iALS (dense and event tiers), BPR, PMF and popularity on
+    phase 3's data and split, scored through the fused kernel; the mesh
+    trainers and scorings on one card; iALS warm start through the data
+    model at ``warm_geometry``.  Returns the measured fields; raises on a
+    failed gate except the launch counts (``launches``), which the caller
+    checks."""
+    import torch
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.models import (ImplicitALS, PopularityModel,
+                                         ProbabilisticMF)
+    from polara_tpu_torch.ops import implicit as imp
+    from polara_tpu_torch.ops.factorize import mf_train
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.ops.scoring import (ChunkedTestData,
+                                              run_scoring_fused)
+    from polara_tpu_torch.ops.sparse import CooMatrix
+    from polara_tpu_torch.parallel import distributed_bpr, distributed_ials
+    from polara_tpu_torch.runtime.mesh import make_mesh
+
+    t_phase = wall()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    n_users, n_items = geometry["n_users"], geometry["n_items"]
+    out = {"epoch_s": {}, "metrics": {}, "launches": {}, "fused_gap": {}}
+
+    # ---- phase 3's data and split; every user is a test user
+    rows_d, cols_d, vals_d = make_realistic_coo_device(**geometry, seed=0,
+                                                       device=device)
+    rows, cols, vals = (x.cpu().numpy() for x in (rows_d, cols_d, vals_d))
+    del rows_d, cols_d, vals_d
+    _, hold_items, hold_mask = holdout_split(rows, cols)
+    keep = ~hold_mask
+    train = [torch.as_tensor(x[keep], device=device)
+             for x in (rows, cols, vals.astype(np.float32))]
+    shape = (n_users, n_items)
+    dense = CooMatrix.from_numpy(rows[keep], cols[keep], vals[keep], shape,
+                                 device=device).to_dense()
+    plan = ChunkedTestData.build(rows[keep], cols[keep], vals[keep],
+                                 n_users=n_users, n_items=n_items,
+                                 device=device)
+    hold_d = torch.as_tensor(hold_items, device=device)
+    test_users = torch.arange(n_users, device=device)
+
+    def score(name, user, item, mesh=None):
+        """The known-user route of the factor models (PMF's factor
+        lookup, which iALS and BPR share; the fused kernel over the
+        popularity-ordered panel), counted."""
+        params = {"user_factors": user, "item_factors": item,
+                  "item_panel": item, "test_users": test_users}
+        before = fused_score_topk.launches
+        vals_, recs = run_scoring_fused(
+            plan, ProbabilisticMF.proj_chunk, params, TOPK,
+            n_valid_cols=n_items, on_device=True, item_order="popularity",
+            mesh=mesh, return_values=True)
+        out["launches"][name] = fused_score_topk.launches - before
+        return vals_, recs
+
+    def evaluate(name, user, item):
+        _, recs = score(name, user, item)
+        out["metrics"][name] = _rank_metrics(recs, hold_d)
+        log(f"  {name}: HR@{TOPK} {out['metrics'][name]['hr']:.5f} "
+            f"MRR@{TOPK} {out['metrics'][name]['mrr']:.5f} NDCG@{TOPK} "
+            f"{out['metrics'][name]['ndcg']:.5f}; "
+            f"{out['launches'][name]} launch(es)")
+        return recs
+
+    # ---- popularity: training counts as a rank-1 factor model
+    counts = torch.bincount(train[1], minlength=n_items).float()
+    evaluate("popularity", torch.ones((n_users, 1), device=device),
+             counts[:, None].contiguous())
+
+    # ---- iALS, dense tier
+    with Timer() as t:
+        ials = imp.ials_train(dense, RANK, num_epochs=IALS_EPOCHS, seed=0,
+                              **IALS)
+    out["ials_dense_s"] = t.seconds
+    out["epoch_s"]["ials_dense"] = t.seconds / IALS_EPOCHS
+    recs_dense = evaluate("ials_dense", ials.user, ials.item)
+    out["fused_gap"]["ials"] = _fused_gap(plan, ials.user, ials.item,
+                                          recs_dense, n_items)
+
+    # ---- iALS, event tier (the same start: the same seed's draw)
+    with Timer() as t:
+        imp.ials_train_events(*train, shape, RANK, num_epochs=0, seed=0,
+                              **IALS)
+    out["ials_events_staging_s"] = t.seconds
+    with Timer() as t:
+        events = imp.ials_train_events(*train, shape, RANK,
+                                       num_epochs=IALS_EPOCHS, seed=0, **IALS)
+    out["ials_events_s"] = t.seconds
+    out["epoch_s"]["ials_events"] = ((t.seconds - out["ials_events_staging_s"])
+                                     / IALS_EPOCHS)
+    recs_events = evaluate("ials_events", events.user, events.item)
+    out["ials_tier_overlap"] = _overlap(recs_events, recs_dense)
+    out["ials_tier_hr_delta"] = abs(out["metrics"]["ials_events"]["hr"]
+                                    - out["metrics"]["ials_dense"]["hr"])
+    out["ials_tier_item_rel_diff"] = (
+        torch.linalg.norm(events.item - ials.item)
+        / torch.linalg.norm(ials.item)).item()
+    del events
+
+    # ---- where an iALS half-sweep spends its time
+    batch_user = imp._auto_batch_rows(n_users, n_items, RANK)
+    out["ials_split_ms"] = (ials_split_ms(dense, ials.item, batch_user)
+                            if dense.is_cuda else None)
+    log(f"  iALS split (ms per user half-sweep): "
+        f"{json.dumps(out['ials_split_ms'])}")
+
+    # ---- BPR
+    aucs = []
+    with Timer() as t:
+        bpr = imp.bpr_train(train[0], train[1], shape, RANK,
+                            learning_rate=BPR_LR, reg=IALS["reg"],
+                            num_epochs=BPR_EPOCHS, batch_size=BPR_BATCH,
+                            seed=0, epoch_stats=aucs)
+    out["bpr_s"] = t.seconds
+    out["epoch_s"]["bpr"] = t.seconds / BPR_EPOCHS
+    n_steps = -(-len(train[0]) // BPR_BATCH)
+    out["bpr_pairs_per_s"] = BPR_EPOCHS * n_steps * BPR_BATCH / t.seconds
+    out["bpr_auc"] = aucs
+    recs_bpr = evaluate("bpr", bpr.user, bpr.item)
+    out["fused_gap"]["bpr"] = _fused_gap(plan, bpr.user, bpr.item, recs_bpr,
+                                         n_items)
+
+    # ---- PMF, its defaults, on the ratings
+    rmse, epoch_times = [], []
+    with Timer() as t:
+        pmf = mf_train(*train, shape, 10, lrate=0.005, lambd=0.5,
+                       num_epochs=25, tol=1e-4, batch_size=8192,
+                       optimizer="sgd", generalized=True, seed=0,
+                       iter_errors=rmse, iter_time=epoch_times)
+    out["pmf_s"] = t.seconds
+    out["epoch_s"]["pmf"] = float(np.mean(epoch_times))
+    out["pmf_rmse"] = rmse
+    evaluate("pmf", pmf.p, pmf.q)
+    del pmf
+
+    log(f"  seconds per epoch: {json.dumps(out['epoch_s'])}; iALS event "
+        f"staging {out['ials_events_staging_s']:.3f} s; BPR "
+        f"{out['bpr_pairs_per_s']:.4g} sampled pairs/s")
+
+    # ---- gates
+    for name in ("ials", "bpr"):
+        check(out["fused_gap"][name] < 1e-3, f"{name} fused_ok: re-scored "
+              f"gap {out['fused_gap'][name]:.2e} < 1e-3")
+    pop_hr = out["metrics"]["popularity"]["hr"]
+    for name in ("ials_dense", "bpr"):
+        check(out["metrics"][name]["hr"] > pop_hr,
+              f"{name} HR@{TOPK} {out['metrics'][name]['hr']:.5f} > "
+              f"popularity's {pop_hr:.5f}")
+    check(aucs[-1] > aucs[0] and aucs[-1] > 0.85,
+          f"BPR batch AUC {aucs[0]:.4f} -> {aucs[-1]:.4f}: rises, ends > 0.85")
+    check(all(np.isfinite(rmse)) and all(
+        b <= a for a, b in zip(rmse[:5], rmse[1:5])),
+        f"PMF RMSE finite, non-increasing over the first 5 epochs "
+        f"({', '.join(f'{r:.5f}' for r in rmse[:5])})")
+    check(out["ials_tier_overlap"] >= 0.99
+          and out["ials_tier_hr_delta"] <= 1e-3,
+          f"iALS event tier vs dense tier: top-{TOPK} overlap "
+          f"{out['ials_tier_overlap']:.5f} >= 0.99, |dHR@{TOPK}| "
+          f"{out['ials_tier_hr_delta']:.2e} <= 1e-3")
+
+    # ---- the mesh trainers and scorings, every entry on this card
+    mesh41 = make_mesh(devices=mesh_devices(4, device), shape=(4, 1))
+    mesh22 = make_mesh(devices=mesh_devices(4, device), shape=(2, 2))
+    with Timer() as t:
+        dist = distributed_ials(dense, RANK, mesh41, num_epochs=2, seed=0,
+                                batch_rows=None, **IALS)
+    out["distributed_ials_s"] = t.seconds
+    start = imp._initial_item_factors(n_items, RANK, 0, torch.float32,
+                                      dense.device)
+    with Timer() as t:
+        _, item2 = imp._ials_epochs(
+            dense, torch.zeros((n_users, RANK), device=dense.device), start,
+            IALS["alpha"], IALS["epsilon"], IALS["reg"], IALS["weight"], 2,
+            batch_user, imp._auto_batch_rows(n_items, n_users, RANK))
+    out["ials_two_epochs_s"] = t.seconds
+    out["distributed_ials_rel_diff"] = (torch.linalg.norm(dist.item - item2)
+                                        / torch.linalg.norm(item2)).item()
+    check(out["distributed_ials_rel_diff"] <= 1e-4,
+          f"distributed_ials (4, 1) vs _ials_epochs, 2 epochs: relative "
+          f"Frobenius difference of the item factors "
+          f"{out['distributed_ials_rel_diff']:.2e} <= 1e-4")
+    del dist, item2
+
+    want = score("single_fixed", ials.user, ials.item)
+    mesh_launches = 0
+    for name, mesh in (("mesh_1d", mesh41), ("mesh_2d", mesh22)):
+        got = score(name, ials.user, ials.item, mesh=mesh)
+        mesh_launches += out["launches"][name]
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"iALS factors scored on {name}: ids and values == one "
+              f"device's")
+    out["mesh_launches"] = mesh_launches
+
+    kw = dict(learning_rate=BPR_LR, reg=IALS["reg"], num_epochs=2,
+              batch_size=BPR_BATCH, seed=0)
+    with Timer() as t:
+        dist = distributed_bpr(train[0], train[1], shape, RANK, mesh41,
+                               update_mode="exact", **kw)
+    out["distributed_bpr_s"] = t.seconds
+    single = imp.bpr_train(train[0], train[1], shape, RANK, **kw)
+    evaluate("bpr_mesh_exact", dist.user, dist.item)
+    evaluate("bpr_two_epochs", single.user, single.item)
+    del dist, single
+    out["distributed_bpr_hr_delta"] = abs(
+        out["metrics"]["bpr_mesh_exact"]["hr"]
+        - out["metrics"]["bpr_two_epochs"]["hr"])
+    check(out["distributed_bpr_hr_delta"] <= 2e-3,
+          f"distributed_bpr exact (4, 1) vs bpr_train, 2 epochs: |dHR@{TOPK}|"
+          f" {out['distributed_bpr_hr_delta']:.2e} <= 2e-3")
+    del ials, bpr, dense, plan
+
+    # ---- iALS warm start through the data model (fold-in, mask_and_topk)
+    frame = events_frame(*make_realistic_coo_device(**warm_geometry, seed=0,
+                                                    device=device))
+    data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.test_ratio = 0.2
+    data.holdout_size = 1
+    data.prepare()
+    warm = {}
+    for name, model in (("ials", ImplicitALS(data, device=device)),
+                        ("popularity", PopularityModel(data, device=device))):
+        model.verbose = False
+        if name == "ials":
+            model.rank = RANK
+        before = fused_score_topk.launches
+        table = model.evaluate()
+        warm[name] = {f: float(getattr(m, f)) for m in table
+                      for f in m._fields if getattr(m, f) is not None}
+        warm[name]["launches"] = fused_score_topk.launches - before
+    out["warm_start"] = warm
+    log(f"  warm start at {warm_geometry}: {json.dumps(warm)}")
+    check(all(np.isfinite(v) for v in warm["ials"].values()),
+          "warm-start iALS: every metric finite")
+    check(warm["ials"]["hr"] > warm["popularity"]["hr"],
+          f"warm-start iALS HR@{TOPK} {warm['ials']['hr']:.5f} > "
+          f"popularity's {warm['popularity']['hr']:.5f}")
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if torch.device(device).type == "cuda" else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -1399,7 +1818,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-6) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-7) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
@@ -1464,6 +1883,24 @@ def main() -> int:
     log(f"  phase 6: {time.perf_counter() - t0:.2f} s")
     log("  " + json.dumps({"mesh": mesh}))
 
+    log("phase 7: iALS, BPR and PMF at ML-10M geometry, their mesh "
+        "trainers, iALS warm start at ML-1M geometry")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    factor = factor_phase(ML10M_GEOMETRY, ML1M_GEOMETRY)
+    for name in ("ials_dense", "ials_events", "bpr", "pmf"):
+        check(factor["launches"][name] > 0,
+              f"{name} launched the kernel ({factor['launches'][name]}x)")
+    for name in ("mesh_1d", "mesh_2d"):
+        check(factor["launches"][name]
+              == 4 * factor["launches"]["single_fixed"],
+              f"iALS on {name}: {factor['launches'][name]} launches == 4 "
+              f"shards x chunks")
+    log(f"  phase 7: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{factor['peak_mem_gib']:.2f} GiB")
+    log("  " + json.dumps({"factor": factor}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -1481,7 +1918,11 @@ def main() -> int:
         "launches": main["launches"],
         "launches_by_path": {"main": main["launches"], "cv": cv["launches"],
                              "sweep": sweep["launches"],
-                             **mesh["launches"]},
+                             **mesh["launches"],
+                             "factor": sum(factor["launches"][name] for name
+                                           in ("popularity", "ials_dense",
+                                               "ials_events", "bpr", "pmf")),
+                             "factor_mesh": factor["mesh_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,

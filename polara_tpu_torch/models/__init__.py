@@ -1,9 +1,12 @@
 from polara_tpu_torch.models.base import EmbeddingsMixin, RecommenderModel
 from polara_tpu_torch.models.baselines import (CooccurrenceModel,
                                                PopularityModel, RandomModel)
+from polara_tpu_torch.models.implicit_mf import ImplicitALS, ImplicitBPR
+from polara_tpu_torch.models.mf import ProbabilisticMF
 from polara_tpu_torch.models.svd import (ScaledMatrixMixin, ScaledSVD,
                                          SVDModel)
 
 __all__ = ["RecommenderModel", "EmbeddingsMixin", "PopularityModel",
            "RandomModel", "CooccurrenceModel", "SVDModel", "ScaledSVD",
-           "ScaledMatrixMixin"]
+           "ScaledMatrixMixin", "ProbabilisticMF", "ImplicitALS",
+           "ImplicitBPR"]

@@ -5,8 +5,8 @@ Counterpart of :mod:`polara_tpu.models.svd` (reference
 ``polara/recommender/models.py:800-898``): randomized subspace iteration
 or block Krylov (:mod:`polara_tpu_torch.ops.rsvd`) over the dense training
 block (or its COO operator past the memory budget), and scoring as
-``R_test · V · Vᵀ`` with ``proj = R_test · V`` gathered per chunk through
-``index_add_``.  Under a mesh the dense block and its bf16 copy shard by
+``R_test · V · Vᵀ`` with ``proj = R_test · V`` per chunk as a sorted
+segment sum (bit-reproducible on the card).  Under a mesh the dense block and its bf16 copy shard by
 rows over the ``users`` axis and the solve orthogonalizes with
 CholeskyQR2.  The streaming tiers are not ported yet.
 """
@@ -22,7 +22,8 @@ from polara_tpu_torch.ops.rsvd import randomized_svd, randomized_svd_krylov
 from polara_tpu_torch.ops.scoring import TestChunk
 from polara_tpu_torch.ops.sparse import (CooMatrix, MatmulOperator,
                                          dense_operator,
-                                         dense_power_operator)
+                                         dense_power_operator,
+                                         sorted_rows_matmul)
 from polara_tpu_torch.runtime.mesh import shard_device_count, shard_rows
 from polara_tpu_torch.runtime.timing import track_time
 
@@ -193,13 +194,15 @@ class SVDModel(RecommenderModel):
     @staticmethod
     def proj_chunk(params: dict, chunk: TestChunk) -> torch.Tensor:
         """User-side panel ``R_chunk @ V`` without materializing R_chunk
-        (feeds both the unfused path and the fused kernel)."""
+        (feeds both the unfused path and the fused kernel), as a sorted
+        segment sum over the chunk's row-sorted events: the same bits on
+        every call.  Padding events (at the tail) become zero terms of
+        the last row, which keeps the rows sorted."""
         v = params["item_factors"]
-        contrib = chunk.vals[:, None].to(v.dtype) * v[chunk.cols]
-        contrib = torch.where(chunk.valid[:, None], contrib, 0.0)
-        out = torch.zeros((chunk.users.shape[0], v.shape[1]), dtype=v.dtype,
-                          device=v.device)
-        return out.index_add_(0, chunk.rows, contrib)
+        n_rows = chunk.users.shape[0]
+        rows = torch.where(chunk.valid, chunk.rows, n_rows - 1)
+        vals = torch.where(chunk.valid, chunk.vals.to(v.dtype), 0.0)
+        return sorted_rows_matmul(rows, chunk.cols, vals, v, n_rows)
 
     @staticmethod
     def score_chunk(params: dict, chunk: TestChunk) -> torch.Tensor:

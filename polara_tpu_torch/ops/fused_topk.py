@@ -15,8 +15,8 @@ per user row, the top-k of ``proj @ itemsᵀ`` with columns at or beyond
 Seen items come as a packed bitmask in the natural layout: word
 ``col // 32``, bit ``col % 32``, held in an int32 tensor with the uint32
 bit pattern (the TPU kernel's striped layout existed only for
-``pltpu.repeat``).  Packing requires unique (row, col) pairs, which the
-data model guarantees.
+``pltpu.repeat``).  Packing sets a repeated (row, col) pair's bit once;
+clearing requires unique pairs, as the JAX plan's does.
 """
 from __future__ import annotations
 
@@ -52,15 +52,16 @@ def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
 def pack_seen_bits(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
                    n_cols: int) -> torch.Tensor:
     """(n_rows, ceil(n_cols / 32)) int32 bitmask with bit (row, col) set,
-    on the device of ``rows``.  The bits of unique pairs are distinct, so
-    summing them (in int64, free of overflow) composes like bitwise-or."""
-    rows = rows.long()
-    cols = cols.long()
+    on the device of ``rows``.  Repeated pairs set their bit once (as the
+    JAX plan's bitwise-or does): the flat bit indices are made unique
+    first, so the bits summed into each word (in int64, free of
+    overflow) are distinct and the sum composes like bitwise-or."""
     n_words = _n_words(n_cols)
+    flat = torch.unique(rows.long() * (n_words * _WORD_BITS) + cols.long())
+    word, bit = flat >> 5, flat & 31
     words = torch.zeros(n_rows * n_words, dtype=torch.int64,
                         device=rows.device)
-    words.index_add_(0, rows * n_words + (cols >> 5),
-                     torch.ones_like(cols) << (cols & 31))
+    words.index_add_(0, word, torch.ones_like(bit) << bit)
     return _as_int32_bits(words).view(n_rows, n_words)
 
 

@@ -34,7 +34,8 @@ class TestChunk(NamedTuple):
 
     ``rows`` are chunk-relative user rows; ``users`` are absolute test-user
     row ids (into the rebased 0..n_test-1 space); invalid entries are
-    masked.
+    masked.  Valid events are sorted by row and invalid ones follow them
+    (the segment-sum projections of the SVD family rely on it).
     """
     start: int               # first absolute user row
     users: torch.Tensor      # (chunk_users,) int64 absolute user row ids

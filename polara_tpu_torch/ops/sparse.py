@@ -3,7 +3,9 @@
 Main-path subset of :mod:`polara_tpu.ops.sparse`: the dense block (the
 default at MovieLens scale — ML-10M dense f32 is ~2.9 GB), its bf16 copy
 for the power passes, and a row-sorted COO matrix whose products run as
-gather -> multiply -> ``index_add_``.  Both implement the same
+sorted segment sums (:func:`sorted_rows_matmul`: a fixed summation order,
+so two calls give identical bits on the card, where ``index_add_``'s
+atomics do not).  Both implement the same
 :class:`MatmulOperator` protocol consumed by the randomized SVD.  The
 dense operators also take a row-sharded block
 (:class:`~polara_tpu_torch.runtime.mesh.ShardedRows`): ``mm`` runs one
@@ -15,7 +17,7 @@ streaming (chunked, tiled, split-head) operators are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,16 +55,31 @@ def _dense_rmm(operands, x, out_dim):
     return operands[0].T @ x
 
 
+def sorted_rows_matmul(rows: torch.Tensor, cols: torch.Tensor,
+                       vals: torch.Tensor, x: torch.Tensor, n_rows: int,
+                       lengths: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """``out[r] = Σ_{e: rows[e] = r} vals[e] · x[cols[e]]`` for entries
+    sorted by row, as a sorted segment sum (``torch.segment_reduce``):
+    each output element is summed over its row's entries in order by one
+    thread, so the result has the same bits on every call.  On the card
+    ``index_add_`` sums with atomics and a CSR ``torch.sparse.mm``
+    (cuSPARSE) also changes its order between calls.  ``lengths``: the
+    entries per row, if known."""
+    if lengths is None:
+        lengths = torch.bincount(rows, minlength=n_rows)
+    terms = vals[:, None].to(x.dtype) * x[cols]
+    return torch.segment_reduce(terms, "sum", lengths=lengths, axis=0)
+
+
 def _coo_mm(operands, x, out_dim):
-    rows, cols, vals = operands
-    out = torch.zeros((out_dim, x.shape[1]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, rows, vals[:, None].to(x.dtype) * x[cols])
+    rows, cols, vals, lengths = operands[:4]
+    return sorted_rows_matmul(rows, cols, vals, x, out_dim, lengths)
 
 
 def _coo_rmm(operands, x, out_dim):
-    rows, cols, vals = operands
-    out = torch.zeros((out_dim, x.shape[1]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, cols, vals[:, None].to(x.dtype) * x[rows])
+    rows, cols, vals, lengths = operands[4:]
+    return sorted_rows_matmul(rows, cols, vals, x, out_dim, lengths)
 
 
 def _sharded_mm(operands, x, out_dim):
@@ -139,7 +156,9 @@ def dense_power_operator(matrix: Union[torch.Tensor, ShardedRows],
 @dataclasses.dataclass
 class CooMatrix:
     """Row-sorted COO sparse matrix on a device (int64 indices, the index
-    type ``index_add_`` and advanced indexing take)."""
+    type advanced indexing takes).  Its products are sorted segment sums
+    (:func:`sorted_rows_matmul`) over the entries and over a column-sorted
+    copy of them, built on first use and kept."""
     rows: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
@@ -174,18 +193,31 @@ class CooMatrix:
         return out.index_put_((self.rows, self.cols), self.vals,
                               accumulate=True)
 
+    def segments(self) -> Tuple[torch.Tensor, ...]:
+        """``(rows, cols, vals, row_lengths)`` of ``A`` and the same of
+        ``Aᵀ`` (the entries in a stable sort by column), built once per
+        matrix: the operands of the products."""
+        segs = self.__dict__.get("_segments")
+        if segs is None:
+            order = torch.argsort(self.cols, stable=True)
+            segs = self.__dict__["_segments"] = (
+                self.rows, self.cols, self.vals,
+                torch.bincount(self.rows, minlength=self.shape[0]),
+                self.cols[order], self.rows[order], self.vals[order],
+                torch.bincount(self.cols, minlength=self.shape[1]))
+        return segs
+
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """``A @ x`` via gather + ``index_add_`` over rows."""
-        return _coo_mm((self.rows, self.cols, self.vals), x, self.shape[0])
+        """``A @ x`` as a sorted segment sum over rows (bit-reproducible)."""
+        return _coo_mm(self.segments(), x, self.shape[0])
 
     def rmatmul(self, x: torch.Tensor) -> torch.Tensor:
-        """``A.T @ x`` via gather + ``index_add_`` over columns."""
-        return _coo_rmm((self.rows, self.cols, self.vals), x, self.shape[1])
+        """``A.T @ x`` as a sorted segment sum over columns."""
+        return _coo_rmm(self.segments(), x, self.shape[1])
 
     def operator(self) -> MatmulOperator:
         return MatmulOperator(shape=self.shape, mm_fn=_coo_mm,
-                              rmm_fn=_coo_rmm,
-                              operands=(self.rows, self.cols, self.vals),
+                              rmm_fn=_coo_rmm, operands=self.segments(),
                               dtype=self.vals.dtype)
 
     def row_nnz(self) -> torch.Tensor:
@@ -226,3 +258,29 @@ def dense_from_coo(idx: np.ndarray, val: np.ndarray,
     return out.index_put_(tuple(idx[:, d] for d in range(idx.shape[1])),
                           torch.as_tensor(val, device=device).to(dtype),
                           accumulate=True)
+
+
+def gather_padded_panels(owner: torch.Tensor, base: torch.Tensor,
+                         counts: torch.Tensor, ev_start: torch.Tensor,
+                         minor: torch.Tensor, vals: torch.Tensor,
+                         n_tiles: int, tile: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-padded (minor, value) panels built with gathers, not scatters.
+
+    Every entity's events (``counts[e]`` of them from ``ev_start[e]`` of
+    the entity-sorted stream) fill its tiles from slot ``base[e]``; tile
+    ``t`` belongs to ``owner[t]``.  The event -> slot map is strictly
+    monotonic, so each slot looks up its source event: real positions
+    read the stream, pad positions read event 0 with value 0 and minor
+    id 0.  Used by the streaming-iALS staging
+    (:func:`polara_tpu_torch.ops.implicit.stage_events_panels`)."""
+    e_pad = n_tiles * tile
+    ent = owner[:, None].expand(n_tiles, tile).reshape(-1)
+    p = torch.arange(e_pad, device=owner.device) - base[ent]
+    valid = p < counts[ent]
+    src = torch.where(valid, ev_start[ent] + torch.minimum(p, counts[ent] - 1),
+                      0)
+    minor_p = torch.where(valid, minor.long()[src], 0)
+    vals_p = torch.where(valid, vals[src], torch.zeros((), dtype=vals.dtype,
+                                                       device=vals.device))
+    return minor_p, vals_p

@@ -1,6 +1,7 @@
-"""Training and scoring over a device mesh (SVD subset).
+"""Training and scoring over a device mesh.
 
-Counterpart of the SVD part of :mod:`polara_tpu.parallel.distributed`.
+Counterpart of the SVD and dense factor-model parts of
+:mod:`polara_tpu.parallel.distributed`.
 The JAX package is single-controller: one process drives a mesh and GSPMD
 inserts the collectives.  Here one process loops over the shards of a
 :class:`~polara_tpu_torch.runtime.mesh.Mesh`, each shard's work on its own
@@ -18,10 +19,14 @@ device, and the collectives are the copies of
   The only cross-shard traffic is the Grams and the (n x b) ``rmm``
   partials.
 
-The event-sharded and dense distributed trainers of the JAX module
-(``distributed_chunked_rsvd``, ``distributed_ials``,
-``distributed_ials_events``, ``distributed_bpr``, ``distributed_hooi``)
-are not ported yet.
+* **iALS** (:func:`distributed_ials`): the confidence block shards by
+  users; the item systems are summed from per-shard partials;
+* **BPR** (:func:`distributed_bpr`): the batch's gradient math shards,
+  or each shard runs its own chain (local SGD).
+
+The event-sharded trainers of the JAX module
+(``distributed_chunked_rsvd``, ``distributed_ials_events``,
+``distributed_hooi``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from polara_tpu_torch.ops.sparse import dense_operator
 from polara_tpu_torch.ops.topk import (mask_and_topk, mask_and_topk_sharded,
                                        top_k_indices)
 from polara_tpu_torch.runtime.mesh import (Mesh, ShardedRows, all_gather,
-                                           device_grid, psum, shard_rows)
+                                           device_grid, psum, shard_rows,
+                                           users_devices)
 from polara_tpu_torch.runtime.rng import generator_from_seed
 
 Rows = Union[torch.Tensor, ShardedRows]
@@ -170,3 +176,274 @@ def _sharded_topk_2d_step(devices, item_factors: torch.Tensor,
         vals.append(scores.gather(1, pos))
         ids.append(pos + j * i_loc)
     return _merge_candidates(vals, ids, topk, devices[0])[1].to(torch.int32)
+
+
+def distributed_ials(dense_ratings: torch.Tensor, rank: int, mesh: Mesh,
+                     alpha: float = 1.0, weight="log2",
+                     epsilon: float = 1.0, reg: float = 0.01,
+                     num_epochs: int = 15, seed: Optional[int] = 0,
+                     batch_rows: Optional[int] = 64,
+                     dtype: torch.dtype = torch.float32,
+                     train_stats: Optional[dict] = None):
+    """Confidence-weighted ALS over a row(user)-sharded confidence block.
+
+    One row-sharded copy of the confidence margin ``C - 1`` is resident;
+    the item half-sweep assembles its normal systems from per-shard
+    partials instead of a transposed copy.  Per epoch:
+
+    * user systems solve shard-locally against the item panel, copied to
+      every shard's device (no other traffic);
+    * item systems: each shard forms its users' weighted Grams
+      ``Σ_u c_ui x_u x_uᵀ`` and right-hand sides ``Σ_u (c_ui+1)·p_ui x_u``;
+      the JAX package's ``psum_scatter`` becomes, for each shard's item
+      slice, a :func:`~polara_tpu_torch.runtime.mesh.psum` of every
+      shard's partials on that shard's device; each slice solves there
+      and an :func:`~polara_tpu_torch.runtime.mesh.all_gather` in shard
+      order rebuilds the panel on the home device.
+
+    Padding as in the JAX package: users pad to a multiple of the
+    ``users`` axis, items to a multiple of ``batch_rows · n_dev`` (zero
+    rows and columns solve to zero factors and are sliced off).  The
+    start is :func:`ials_train`'s (the same generator draws), so the two
+    differ by the order of float sums.  ``train_stats`` receives the
+    per-epoch wall seconds and an estimate of the bytes each device
+    receives per epoch.
+    """
+    import time
+
+    from polara_tpu_torch.ops.implicit import (ImplicitFactors,
+                                               _auto_batch_rows,
+                                               _cholesky_solve,
+                                               _initial_item_factors,
+                                               _raise_if_failed,
+                                               confidence, ials_half_sweep)
+
+    devices = users_devices(mesh)
+    n_dev = len(devices)
+    home = devices[0]
+    n_users, n_items = dense_ratings.shape
+    if batch_rows is None:      # sized like the single-device path
+        batch_rows = _auto_batch_rows(max(n_users // n_dev, 1), n_items,
+                                      rank)
+    pad_u = (-n_users) % n_dev
+    pad_i = (-n_items) % (batch_rows * n_dev)
+    ni_p = n_items + pad_i
+    # the padded margin, built in place (one copy of the block)
+    cm1 = dense_ratings.new_zeros((n_users + pad_u, ni_p), dtype=dtype)
+    cm1[:n_users, :n_items] = confidence(dense_ratings.to(dtype), alpha,
+                                         weight, epsilon)
+    shards = shard_rows(cm1, mesh).blocks
+    del cm1
+    eye = reg * torch.eye(rank, dtype=dtype, device=home)
+    item_factors = torch.nn.functional.pad(
+        _initial_item_factors(n_items, rank, seed, dtype, home),
+        (0, 0, 0, pad_i))
+    ni_loc = ni_p // n_dev
+
+    def epoch(y):
+        failures = []
+        x_parts, gram_w, rhs = [], [], []
+        for cm1_local, device in zip(shards, devices):
+            x_local = ials_half_sweep(cm1_local, y.to(device), reg,
+                                      batch_rows)
+            rhs.append(torch.where(cm1_local > 0, cm1_local + 1.0, 0.0).T
+                       @ x_local)
+            parts = []
+            for b in range(ni_p // batch_rows):
+                cm_b = cm1_local[:, b * batch_rows:(b + 1) * batch_rows]
+                weighted = cm_b.T[:, :, None] * x_local[None]  # (b, u, k)
+                parts.append(torch.matmul(weighted.transpose(1, 2),
+                                          x_local))
+            gram_w.append(torch.cat(parts))
+            x_parts.append(x_local)
+        gram0 = psum([x.T @ x for x in x_parts], home)
+        v_parts = []
+        for s, device in enumerate(devices):
+            rows = slice(s * ni_loc, (s + 1) * ni_loc)
+            gram_l = psum([g[rows] for g in gram_w], device)
+            rhs_l = psum([r[rows] for r in rhs], device)
+            a_l = gram0.to(device)[None] + eye.to(device)[None] + gram_l
+            v_parts.append(_cholesky_solve(a_l, rhs_l, failures))
+        _raise_if_failed(failures)
+        return x_parts, all_gather(v_parts, home)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    comm_bytes = int(ni_p * rank * rank * itemsize      # Gram scatter
+                     + ni_p * rank * itemsize           # rhs scatter
+                     + ni_p * rank * itemsize           # panel gather
+                     + rank * rank * itemsize * n_dev)  # gram0 sum
+    epochs_log = [] if train_stats is not None else None
+    x_parts = []
+    for _ in range(num_epochs):
+        start = time.perf_counter()
+        x_parts, item_factors = epoch(item_factors)
+        if epochs_log is not None:
+            if item_factors.is_cuda:
+                torch.cuda.synchronize(item_factors.device)
+            epochs_log.append({"wall_s": time.perf_counter() - start,
+                               "comm_bytes": comm_bytes})
+    if train_stats is not None:
+        train_stats.update(mode="sharded-normal-systems",
+                           n_devices=n_dev, epochs=epochs_log)
+    user_factors = (all_gather(x_parts, home)[:n_users] if x_parts
+                    else torch.zeros((n_users, rank), dtype=dtype,
+                                     device=home))
+    return ImplicitFactors(user=user_factors, item=item_factors[:n_items])
+
+
+def distributed_bpr(rows, cols, shape, rank: int, mesh: Mesh,
+                    learning_rate: float = 0.01, reg: float = 0.01,
+                    num_epochs: int = 100, batch_size: int = 1024,
+                    seed: Optional[int] = 0,
+                    dtype: torch.dtype = torch.float32,
+                    epoch_stats: Optional[list] = None,
+                    update_mode: str = "exact",
+                    sync_every: Optional[int] = None,
+                    train_stats: Optional[dict] = None):
+    """BPR over the mesh's ``users`` axis, in one of two modes.
+
+    ``update_mode="exact"``: one sampler draws the single-device
+    sampler's batches (:func:`bpr_train`'s generator and starting
+    factors); each shard computes the sigmoid gradients of its slice of
+    the batch on its own device, the per-triple scalars gather in shard
+    order (the JAX package's ``all_gather``), and every device's replica
+    of the factors takes the same update.  So the trajectory is
+    :func:`bpr_train`'s for the same seed (bit for bit on the CPU).
+
+    ``update_mode="local"``: local SGD.  Each shard runs its own chain on
+    ``batch_size / n_dev`` draws per step from a generator seeded by
+    (seed, shard), at ``learning_rate · n_dev`` (replica averaging divides
+    each chain's progress by ``n_dev``), on its own replica; the replicas
+    are averaged (``pmean``) every ``sync_every`` steps (default: once per
+    epoch) and at the end of each epoch.  Epoch coverage matches the
+    single-device run; the trajectory does not.
+
+    Factors come back on the home device (the first ``users`` shard's).
+    ``train_stats`` receives per-epoch wall seconds and an estimate of
+    the bytes each device receives.
+    """
+    import time
+
+    import numpy as np
+
+    from polara_tpu_torch.ops.implicit import (ImplicitFactors, _bpr_draw,
+                                               _bpr_epoch, _bpr_start,
+                                               _bpr_update, _seen_matrix,
+                                               _sigmoid_neg)
+
+    if update_mode not in ("exact", "local"):
+        raise ValueError(f"unknown update_mode {update_mode!r}")
+    devices = users_devices(mesh)
+    n_dev = len(devices)
+    home = devices[0]
+    if batch_size % n_dev:
+        raise ValueError(f"batch_size {batch_size} must divide over "
+                         f"{n_dev} devices")
+    b_loc = batch_size // n_dev
+    n_users, n_items = (int(s) for s in shape)
+    rows_h = torch.as_tensor(rows).to(device=home, dtype=torch.int64)
+    cols_h = torch.as_tensor(cols).to(device=home, dtype=torch.int64)
+    nnz = len(rows_h)
+    seen_h = _seen_matrix(rows_h, cols_h, shape)
+    gen, user_factors, item_factors = _bpr_start(shape, rank, seed, dtype,
+                                                 home)
+    # per-device copies of the inputs, one per distinct device
+    placed = {d: tuple(t.to(d) for t in (rows_h, cols_h, seen_h))
+              for d in dict.fromkeys(devices)}
+
+    n_steps = max(1, -(-nnz // batch_size))
+    if sync_every is None:
+        sync_every = n_steps
+    lr_local = learning_rate * n_dev
+
+    def epoch_exact(x_rep, y_rep):
+        auc_sum = torch.zeros((), dtype=torch.float32, device=home)
+        for _ in range(n_steps):
+            idx, j_all = _bpr_draw(gen, nnz, n_items, batch_size, home)
+            g_parts, ok_parts, hits, oks = [], [], [], []
+            for s, device in enumerate(devices):
+                lo = s * b_loc
+                rows_d, cols_d, seen_d = placed[device]
+                x, y = x_rep[device], y_rep[device]
+                idx_l = idx[lo:lo + b_loc].to(device)
+                j_l = j_all[lo:lo + b_loc].to(device)
+                u_l, i_l = rows_d[idx_l], cols_d[idx_l]
+                ok_l = ~seen_d[u_l, j_l]
+                margin_l = torch.sum(x[u_l] * (y[i_l] - y[j_l]), dim=1)
+                g_parts.append(torch.where(ok_l, _sigmoid_neg(margin_l),
+                                           0.0))
+                ok_parts.append(ok_l.to(x.dtype))
+                hits.append((ok_l & (margin_l > 0)).sum())
+                oks.append(ok_l.sum())
+            for device in x_rep:      # every replica takes the same update
+                rows_d, cols_d, _ = placed[device]
+                x, y = x_rep[device], y_rep[device]
+                idx_d, j_d = idx.to(device), j_all.to(device)
+                u, i = rows_d[idx_d], cols_d[idx_d]
+                _bpr_update(x, y, u, i, j_d, x[u], y[i], y[j_d],
+                            all_gather(g_parts, device)[:, None],
+                            all_gather(ok_parts, device)[:, None],
+                            learning_rate, reg)
+            auc_sum += psum(hits, home) / psum(oks, home).clamp(min=1)
+        return auc_sum / n_steps
+
+    def chain_generator(shard: int, device) -> torch.Generator:
+        """Shard ``shard``'s chain: a generator seeded from (seed, shard)."""
+        mixed = np.random.SeedSequence([0 if seed is None else int(seed),
+                                        shard])
+        gen_s = torch.Generator(device=device)
+        gen_s.manual_seed(int(mixed.generate_state(1)[0]))
+        return gen_s
+
+    if update_mode == "local":
+        chain_gens = [chain_generator(s, d) for s, d in enumerate(devices)]
+
+    def epoch_local(x_rep, y_rep):
+        # one replica per shard; the mean of the replicas after each block
+        reps = [(x_rep[d].clone(), y_rep[d].clone()) for d in devices]
+        aucs = []
+        for lo in range(0, n_steps, sync_every):
+            steps = min(sync_every, n_steps - lo)
+            for s, device in enumerate(devices):
+                rows_d, cols_d, seen_d = placed[device]
+                x, y = reps[s]
+                _, _, auc = _bpr_epoch(x, y, seen_d, rows_d, cols_d,
+                                       chain_gens[s], n_steps=steps,
+                                       batch_size=b_loc, lr=lr_local,
+                                       reg=reg)
+                aucs.append((auc * steps).to(home))
+            x_mean = psum([x for x, _ in reps], home) / n_dev
+            y_mean = psum([y for _, y in reps], home) / n_dev
+            reps = [(x_mean.to(d).clone(), y_mean.to(d).clone())
+                    for d in devices]
+        for d in x_rep:
+            x_rep[d], y_rep[d] = x_mean.to(d), y_mean.to(d)
+        return torch.stack(aucs).sum() / (n_steps * n_dev)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if update_mode == "local":
+        n_blocks = -(-n_steps // sync_every)
+        comm_bytes = int(n_blocks * (n_users + n_items) * rank * itemsize)
+    else:
+        comm_bytes = int(n_steps * 2 * batch_size * itemsize)
+    x_rep = {d: user_factors.to(d) for d in placed}
+    y_rep = {d: item_factors.to(d) for d in placed}
+    run = epoch_local if update_mode == "local" else epoch_exact
+    epochs_log = [] if train_stats is not None else None
+    pending = []
+    for _ in range(num_epochs):
+        start = time.perf_counter()
+        auc = run(x_rep, y_rep)
+        if epochs_log is not None:
+            auc = float(auc)
+            epochs_log.append({"auc": auc,
+                               "wall_s": time.perf_counter() - start,
+                               "comm_bytes": comm_bytes})
+        pending.append(torch.as_tensor(auc, dtype=torch.float32,
+                                       device=home))
+    if epoch_stats is not None and pending:
+        epoch_stats.extend(torch.stack(pending).cpu().double().tolist())
+    if train_stats is not None:
+        train_stats.update(mode=update_mode, n_devices=n_dev,
+                           steps_per_epoch=n_steps, epochs=epochs_log)
+    return ImplicitFactors(user=x_rep[home], item=y_rep[home])

@@ -29,20 +29,20 @@ UNPORTED = {
         "make_realistic_coo", "make_realistic_interactions",
     },
     "polara_tpu.models": {
-        "ProbabilisticMF", "CoffeeModel", "SimilarityAggregation",
+        "CoffeeModel", "SimilarityAggregation",
         "KernelizedPMF", "LCEModel", "HybridSVD", "ScaledHybridSVD",
         "RandomModelItemColdStart", "PopularityModelItemColdStart",
         "SimilarityAggregationItemColdStart", "SVDModelItemColdStart",
         "HybridSVDItemColdStart", "ScaledSVDItemColdStart",
         "ScaledHybridSVDItemColdStart", "LCEModelItemColdStart",
-        "ItemPostFilteringMixin", "ImplicitALS", "ImplicitBPR",
+        "ItemPostFilteringMixin",
     },
     "polara_tpu.ops": {
         "PaddedRows", "inner_product_at", "pad_rows",
     },
     "polara_tpu.parallel": {
-        "distributed_chunked_rsvd", "distributed_ials",
-        "distributed_ials_events", "distributed_bpr", "distributed_hooi",
+        "distributed_chunked_rsvd", "distributed_ials_events",
+        "distributed_hooi",
     },
     "polara_tpu.preprocessing": {
         "dataframes", "features", "matrices",

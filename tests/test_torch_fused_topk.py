@@ -206,3 +206,23 @@ def test_cpu_wrapper_does_not_count_launches():
     proj, items, rows, cols = _case(10, 8, 100, 4, 50)
     _port(proj, items, rows, cols, 10)
     assert tf.fused_score_topk.launches == before
+
+
+def test_duplicate_pair_sets_its_bit_once_like_the_jax_plan():
+    """A (row 0, item 3) pair given twice sets bit 3 once, as the JAX plan
+    ORs it (``ChunkedTestData.build`` of both packages; the JAX plan's
+    words at ``tile_n=32`` are the natural layout): no carry into item 4,
+    and item 3 stays masked."""
+    from polara_tpu.ops.scoring import ChunkedTestData as JaxPlan
+    from polara_tpu_torch.ops.scoring import ChunkedTestData as TorchPlan
+    rows = np.array([0, 0, 0, 1, 2, 2])
+    cols = np.array([3, 3, 35, 0, 7, 39])
+    vals = np.ones(len(rows))
+    want = np.asarray(JaxPlan.build(rows, cols, vals, 3, 40).seen_bits(
+        0, 40, tile_n=32))[:3]
+    got = TorchPlan.build(rows, cols, vals, 3, 40, device="cpu").seen_bits(
+        0, 40)[:3]
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert want[0, 0] == 8
+    mask = tf.seen_mask(got, 40)
+    assert mask[0, 3] and not mask[0, 4]

@@ -112,3 +112,51 @@ def test_fused_scoring_forced_on_cpu_equals_unfused():
     finally:
         tconfig.set_default("fused_scoring", saved)
     np.testing.assert_array_equal(fused, unfused)
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_segment_sum_projection_equals_the_index_add_route(dyadic):
+    """``SVDModel.proj_chunk`` and the COO operator's products run as sorted
+    segment sums (bit-reproducible on the card); on the CPU they equal the
+    ``index_add_`` route they replaced: identical for dyadic values
+    (exact sums in any order), and within rtol 1e-6 of each row's (or
+    column's) largest magnitude for Gaussian ones (f32 sums in another
+    order)."""
+    from polara_tpu_torch.ops.scoring import ChunkedTestData
+    from polara_tpu_torch.ops.sparse import CooMatrix
+    rs = np.random.RandomState(0)
+    n_users, n_items, rank = 70, 50, 8
+    pairs = np.unique(np.stack([rs.randint(0, n_users, 900),
+                                rs.randint(0, n_items, 900)], 1), axis=0)
+    vals = (np.round(rs.randn(len(pairs)) * 4) / 4 if dyadic
+            else rs.randn(len(pairs))).astype(np.float32)
+    v = torch.as_tensor(np.round(rs.randn(n_items, rank) * 4) / 4 if dyadic
+                        else rs.randn(n_items, rank), dtype=torch.float32)
+    plan = ChunkedTestData.build(pairs[:, 0], pairs[:, 1], vals, n_users,
+                                 n_items, chunk_users=32, device="cpu")
+
+    def index_add_route(rows, cols, w, x, n_out):
+        out = torch.zeros((n_out, x.shape[1]))
+        return out.index_add_(0, rows, w[:, None] * x[cols])
+
+    def check(got, want):
+        if dyadic:
+            assert torch.equal(got, want)
+        else:
+            scale = want.abs().amax(dim=1, keepdim=True)
+            assert ((got - want).abs() <= 1e-6 * scale).all()
+
+    for chunk in plan.chunks:
+        want = index_add_route(chunk.rows, chunk.cols,
+                               torch.where(chunk.valid, chunk.vals, 0.0), v,
+                               chunk.users.shape[0])
+        check(TorchSVD.proj_chunk({"item_factors": v}, chunk), want)
+    coo = CooMatrix.from_numpy(pairs[:, 0], pairs[:, 1], vals,
+                               (n_users, n_items), device="cpu")
+    u = torch.as_tensor(np.round(rs.randn(n_users, rank) * 4) / 4 if dyadic
+                        else rs.randn(n_users, rank), dtype=torch.float32)
+    op = coo.operator()
+    check(op.mm(v), index_add_route(coo.rows, coo.cols, coo.vals, v,
+                                    n_users))
+    check(op.rmm(u), index_add_route(coo.cols, coo.rows, coo.vals, u,
+                                     n_items))
