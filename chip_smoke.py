@@ -73,8 +73,38 @@ Phases, in order; any failed check raises and the script exits non-zero:
    warm-start metrics are finite and beat popularity.  Times: seconds
    per epoch, an iALS half-sweep split into its parts, event staging,
    BPR pairs/s, peak memory.
+8. The tensor path: ``benchmarks/ml10m_coffee.py``'s CoFFee, mlrank (13,
+   10, 2), 25 sweeps at most, growth tolerance 1e-4, through the data
+   model at ML-10M geometry (one random held-out event per test user, 20%
+   test users); the dense tensor is past the memory budget, so HOOI runs
+   on the event tier (sorted segment sums), and scoring goes through the
+   kernel.  Then ``find_optimal_tucker_ranks`` over that benchmark's
+   grid, a rebuild at the best mlrank, PureSVD-50 (Krylov) for context;
+   ``distributed_hooi`` on a (4, 1) mesh against ``hooi`` for 3 sweeps;
+   ``CoffeeModel`` scored on (4, 1) and (2, 2) meshes; at ML-1M geometry
+   the dense tier against the event tier and ``predict_feedback``.
+   Gates: the kernel ran (build + evaluate, the rank search, each mesh:
+   shards x chunks), ``fused_ok``, HR@10 above popularity's, two builds
+   and two ``proj_chunk`` calls bit-identical, the tiers' principal
+   angles < 1e-3 and |dHR@10| <= 1e-3, ``distributed_hooi``'s < 1e-4,
+   mesh ids equal to one device's, predicted ratings among the trained
+   ones.  Times: the build and its sweeps, one sweep split into segment
+   sums / QR + SVD / small products, tuning, scoring, peak memory.
+9. The serving entry point: ``ServingBundle`` over phase 3's PureSVD
+   factors (projection), phase 7's iALS and BPR factors (fold-in) and
+   phase 8's CoFFee model (``from_model``, value map) at the ML-10M
+   catalog, batch 1,024, top-10 (``benchmarks/serving_throughput.py``):
+   id lists of 100 events (bucket 128), of 50 and 200 (buckets 64 and
+   256), rating dicts and dense profiles, counted.  Gates: the kernel ran
+   for each bundle; each step's kernel against its plain version on the
+   step's own inputs (integer-factor twins: ids identical for the
+   projection steps; fold-in solves and trained factors: re-scored
+   picks); a request that has seen all but 3 items gets them, then its
+   seen items in ascending order (``lax.top_k``'s fill); save -> load
+   gives identical ids.  Times per step: the whole call (host clock), the
+   host assembly, the device part (CUDA events), the kernel alone.
 
-pandas is required (phases 4-7): without it the script exits non-zero
+pandas is required (phases 4-9): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -84,9 +114,10 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-7;
+and then the score kernel, and ``launches_by_path`` those of phases 3-9;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
-``mesh_shard`` at one shard of each mesh, and ``mesh_merge_ms``), and as
+``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
+shape, ``serving_batch`` at one serving batch, and ``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
@@ -357,9 +388,12 @@ def _hit_metrics(recs, hold_items):
     return out["hr"].item(), out["ndcg"].item()
 
 
-def main_path(geometry, device="cuda", verify_users=VERIFY_USERS):
+def main_path(geometry, device="cuda", verify_users=VERIFY_USERS,
+              trained=None):
     """Phase 3.  Returns the measured fields; raises on a failed gate
-    (except the kernel launch count, which the caller checks)."""
+    (except the kernel launch count, which the caller checks).  The item
+    factors go to ``trained["svd"]`` when a dict is given (phase 9 serves
+    them)."""
     import torch
     from polara_tpu_torch.datasets import make_realistic_coo_device
     from polara_tpu_torch.models.svd import SVDModel
@@ -405,6 +439,8 @@ def main_path(geometry, device="cuda", verify_users=VERIFY_USERS):
                                 power_operator=dense_power_operator(dense))
     out["build_s"] = t.seconds
     v = result.v.contiguous()
+    if trained is not None:
+        trained["svd"] = v
     params = {"item_factors": v, "item_panel": v}
     with Timer() as t:
         recs = run_scoring_fused(plan, SVDModel.proj_chunk, params, TOPK,
@@ -1517,13 +1553,14 @@ def ials_split_ms(dense, item, batch_rows, reps=5):
     return out
 
 
-def factor_phase(geometry, warm_geometry, device="cuda"):
+def factor_phase(geometry, warm_geometry, device="cuda", trained=None):
     """Phase 7: iALS (dense and event tiers), BPR, PMF and popularity on
     phase 3's data and split, scored through the fused kernel; the mesh
     trainers and scorings on one card; iALS warm start through the data
     model at ``warm_geometry``.  Returns the measured fields; raises on a
     failed gate except the launch counts (``launches``), which the caller
-    checks."""
+    checks.  The iALS and BPR item factors go to ``trained["ials"]`` and
+    ``trained["bpr"]`` when a dict is given (phase 9 serves them)."""
     import torch
     from polara_tpu_torch.data import RecommenderData
     from polara_tpu_torch.datasets import make_realistic_coo_device
@@ -1731,6 +1768,8 @@ def factor_phase(geometry, warm_geometry, device="cuda"):
     check(out["distributed_bpr_hr_delta"] <= 2e-3,
           f"distributed_bpr exact (4, 1) vs bpr_train, 2 epochs: |dHR@{TOPK}|"
           f" {out['distributed_bpr_hr_delta']:.2e} <= 2e-3")
+    if trained is not None:
+        trained["ials"], trained["bpr"] = ials.item, bpr.item
     del ials, bpr, dense, plan
 
     # ---- iALS warm start through the data model (fold-in, mask_and_topk)
@@ -1761,6 +1800,509 @@ def factor_phase(geometry, warm_geometry, device="cuda"):
           f"popularity's {warm['popularity']['hr']:.5f}")
     out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                            if torch.device(device).type == "cuda" else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: the tensor path
+# --------------------------------------------------------------------------
+
+# benchmarks/ml10m_coffee.py's configuration and mlrank grid
+MLRANK = (13, 10, 2)
+TUCKER_GRID = ((13, 20, 30, 40), (10, 15, 20, 30), (2, 3, 4))
+
+
+def coffee_data(geometry, device="cuda", warm_start=True):
+    """``benchmarks/ml10m_coffee.py``'s scenario on seeded data at this
+    geometry: one random held-out event per test user, 20% test users
+    (warm start unless ``warm_start=False``), data seed 0."""
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
+                                                    device=device))
+    data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.warm_start = warm_start
+    data.holdout_size = 1
+    data.test_ratio = 0.2
+    data.random_holdout = True
+    data.prepare()
+    return data
+
+
+def coffee_model(data, device, mesh=None, **attrs):
+    from polara_tpu_torch.models import CoffeeModel
+    model = CoffeeModel(data, device=device, mesh=mesh)
+    model.verbose = False
+    model.mlrank = MLRANK
+    model.seed = 0
+    for name, value in attrs.items():
+        setattr(model, name, value)
+    return model
+
+
+def max_sin(a, b) -> float:
+    """Sine of the largest principal angle between two column spans (f64,
+    from the projection residual)."""
+    import torch
+    qa = torch.linalg.qr(a.double())[0]
+    qb = torch.linalg.qr(b.double())[0]
+    return torch.linalg.matrix_norm(qb - qa @ (qa.T @ qb), ord=2).item()
+
+
+def hooi_sweep_split_ms(idx, val, shape, factors, reps=5):
+    """One HOOI sweep on the event tier at these inputs (CUDA events) and
+    its parts, each timed alone: the three segment sums, the two tall QRs
+    with their small SVDs and the level SVD, and the small products (the
+    unfoldings and the core); plus the staging of the two event orders."""
+    import torch
+    from polara_tpu_torch.ops import hooi as hm
+    u0, u1, u2 = factors
+    core_shape = (u0.shape[1], u1.shape[1], u2.shape[1])
+    n0, n1, n2 = shape
+    with Timer() as t:
+        staged = hm.stage_hooi_events(idx, val, shape, u0.dtype, u0.device)
+    sums = hm.event_sums(*staged, n2)
+    a, b = sums(0, u1), sums(1, u0)
+    m0 = torch.einsum("ufa,fs->uas", a, u2).reshape(n0, -1)
+    m1 = torch.einsum("ifb,fs->ibs", b, u2).reshape(n1, -1)
+    m2 = torch.einsum("ufa,ub->fab", a, u0).reshape(n2, -1)
+
+    def products():
+        torch.einsum("ufa,fs->uas", a, u2)
+        torch.einsum("ifb,fs->ibs", b, u2)
+        torch.einsum("ufa,ub->fab", a, u0)
+        return torch.einsum("ua,ufb,fc->abc", u0, a, u2)
+
+    out = {"staging_ms": t.seconds * 1e3}
+    if u0.is_cuda:
+        out.update(
+            segment_sums=time_ms(lambda: (sums(0, u1), sums(1, u0),
+                                          sums(0, u1)), reps),
+            qr_svd=time_ms(lambda: (
+                hm._left_singular_vectors(m0, core_shape[0]),
+                hm._left_singular_vectors(m1, core_shape[1]),
+                torch.linalg.svd(m2, full_matrices=False)), reps),
+            products=time_ms(products, reps),
+            sweep=time_ms(lambda: hm._hooi_sweep(sums, u0, u1, u2, shape,
+                                                 core_shape), reps))
+    return out
+
+
+def tensor_phase(geometry, small_geometry, device="cuda", trained=None):
+    """Phase 8: CoFFee at ``geometry`` through the data model on the event
+    tier, scored through the fused kernel; its rank search, the mesh
+    trainer and mesh scorings; the dense tier against the event tier at
+    ``small_geometry``.  Returns the measured fields; raises on a failed
+    gate except the launch counts (``launches``), which the caller
+    checks.  The CoFFee serving bundle goes to ``trained["coffee"]`` when
+    a dict is given."""
+    import torch
+    from polara_tpu_torch import config
+    from polara_tpu_torch.evaluation import find_optimal_tucker_ranks
+    from polara_tpu_torch.models import (CoffeeModel, PopularityModel,
+                                         SVDModel)
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.ops.hooi import hooi
+    from polara_tpu_torch.parallel import distributed_hooi
+    from polara_tpu_torch.runtime.mesh import make_mesh
+    from polara_tpu_torch.runtime.serving import ServingBundle
+
+    t_phase = wall()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}}
+    t0 = wall()
+    data = coffee_data(geometry, device)
+    out["prepare_s"] = wall() - t0
+    userid, itemid, feedback = data.fields
+
+    # ---- the path as a user drives it: build, evaluate, counted
+    fused_score_topk.launches = 0
+    model = coffee_model(data, device)
+    t0 = wall()
+    model.build()
+    out["build_s"] = wall() - t0
+    t0 = wall()
+    scores = model.evaluate(["relevance", "ranking"])
+    out["evaluate_s"] = wall() - t0
+    out["hr10"], out["mrr10"] = float(scores[0].hr), float(scores[1].mrr)
+    with Timer() as t:
+        model.get_recommendations()
+    out["scoring_warm_ms"] = t.seconds * 1e3
+    out["launches"]["tensor"] = fused_score_topk.launches
+    recs = model._device_recommendations()
+
+    idx, val, shape = data.to_coo(tensor_mode=True)
+    out["tensor_shape"], out["nnz"] = list(shape), int(len(val))
+    history = model.growth_history
+    out["sweeps"], out["last_growth"] = len(history), history[-1]
+    out["build_s_per_sweep"] = out["build_s"] / len(history)
+    tensor_bytes = int(np.prod(shape)) * 4
+    budget = config.get_default("hbm_score_budget_gb") * 2 ** 30
+    cached = ("coffee_tensor", torch.float32, model.device) in \
+        data.__dict__.get("_device_matrix_cache", {})
+    log(f"  tensor {shape}, {out['nnz']} events ({tensor_bytes / 2**30:.1f} "
+        f"GiB dense); build {out['build_s']:.3f} s, {len(history)} sweeps, "
+        f"last growth {history[-1]:.3e} (tolerance {model.growth_tol:g}); "
+        f"HR@{TOPK} {out['hr10']:.5f} MRR@{TOPK} {out['mrr10']:.5f}; "
+        f"{out['launches']['tensor']} launch(es)")
+    check(tensor_bytes > budget and not cached,
+          "the build took the event tier (the dense tensor is past "
+          "hbm_score_budget_gb, none cached)")
+    if history[-1] >= model.growth_tol:
+        log(f"  growth did not fall below {model.growth_tol:g} in "
+            f"{len(history)} sweeps (last {history[-1]:.3e})")
+
+    # ---- gates of the path
+    plan = model._test_plan
+    params = model.score_params()
+    head = plan.chunks[0]
+    proj = CoffeeModel.proj_chunk(params, head)
+    v = params["item_panel"]
+    out["fused_gap"] = _fused_gap(plan, proj, v, recs, v.shape[0])
+    check(out["fused_gap"] < 1e-3, f"CoFFee fused_ok: re-scored gap "
+          f"{out['fused_gap']:.2e} < 1e-3")
+    check(torch.equal(proj, CoffeeModel.proj_chunk(params, head)),
+          "two proj_chunk calls give bit-identical projections")
+    pop = PopularityModel(data, device=device)
+    pop.verbose = False
+    out["popularity_hr10"] = float(pop.evaluate("relevance").hr)
+    check(out["hr10"] > out["popularity_hr10"],
+          f"CoFFee HR@{TOPK} {out['hr10']:.5f} > popularity's "
+          f"{out['popularity_hr10']:.5f}")
+    again = coffee_model(data, device)
+    again.build()
+    check(all(torch.equal(f, again.factors[name])
+              for name, f in model.factors.items()),
+          "two builds with one seed give identical factor bits")
+    del again
+
+    # the kernel at CoFFee's scoring shape (popularity-ordered panel)
+    perm, inv = plan.pop_order(v.shape[0])
+    panel = v.index_select(0, torch.as_tensor(perm, device=v.device))
+    bits = plan.seen_bits(0, v.shape[0], col_map=inv,
+                          map_token=("pop", v.shape[0]))
+    out["kernel"] = mesh_shard_fields(proj.contiguous(), panel.contiguous(),
+                                      bits, v.shape[0], device)
+    out["sweep_split_ms"] = hooi_sweep_split_ms(
+        idx, val, shape, [model.factors[k] for k in data.fields])
+    log(f"  one sweep (ms): {json.dumps(out['sweep_split_ms'])}")
+
+    # ---- the rank search over benchmarks/ml10m_coffee.py's grid
+    tuned = coffee_model(data, device)
+    fused_score_topk.launches = 0
+    t0 = wall()
+    best, table = find_optimal_tucker_ranks(
+        tuned, TUCKER_GRID, "hr", return_scores=True,
+        metric_type="relevance", topk=TOPK)
+    out["tuning_s"] = wall() - t0
+    out["tuning_max_build_s"] = tuned.training_time[-1]
+    out["launches"]["tuning"] = fused_score_topk.launches
+    out["tuning_cells"] = int(len(table))
+    out["best_mlrank"] = [int(r) for r in best]
+    tuned.mlrank = tuple(out["best_mlrank"])
+    t0 = wall()
+    tuned.build()
+    out["tuned_build_s"] = wall() - t0
+    tuned_scores = tuned.evaluate(["relevance", "ranking"])
+    out["tuned_hr10"] = float(tuned_scores[0].hr)
+    out["tuned_mrr10"] = float(tuned_scores[1].mrr)
+    svd = SVDModel(data, device=device)
+    svd.verbose = False
+    svd.rank = RANK
+    svd.svd_method = "krylov"
+    out["puresvd_hr10"] = float(svd.evaluate("relevance").hr)
+    del svd, tuned
+    log(f"  rank search: {out['tuning_cells']} cells in "
+        f"{out['tuning_s']:.2f} s (max-rank build "
+        f"{out['tuning_max_build_s']:.2f} s); best mlrank "
+        f"{tuple(out['best_mlrank'])}: HR@{TOPK} {out['tuned_hr10']:.5f} "
+        f"MRR@{TOPK} {out['tuned_mrr10']:.5f} (build "
+        f"{out['tuned_build_s']:.2f} s); PureSVD-{RANK} (Krylov) HR@{TOPK} "
+        f"{out['puresvd_hr10']:.5f}")
+    check(np.isfinite(table.values).all() and out["tuning_cells"] > 0,
+          "every searched cell's HR@10 is finite")
+
+    # ---- distributed_hooi on a (4, 1) mesh against hooi, 3 sweeps
+    mesh41 = make_mesh(devices=mesh_devices(4, device), shape=(4, 1))
+    mesh22 = make_mesh(devices=mesh_devices(4, device), shape=(2, 2))
+    kw = dict(num_iters=3, growth_tol=0.0, seed=0)
+    with Timer() as t:
+        single = hooi(idx, val, shape, MLRANK, device=device, **kw)
+    out["hooi_3_sweeps_s"] = t.seconds
+    with Timer() as t:
+        dist = distributed_hooi(idx, val, shape, MLRANK, mesh41, **kw)
+    out["distributed_hooi_3_sweeps_s"] = t.seconds
+    out["distributed_hooi_max_sin"] = max(
+        max_sin(a, b) for a, b in zip(dist[:3], single[:3]))
+    check(out["distributed_hooi_max_sin"] < 1e-4,
+          f"distributed_hooi (4, 1) vs hooi, 3 sweeps from one start: "
+          f"principal angles (max sin) {out['distributed_hooi_max_sin']:.2e}"
+          f" < 1e-4")
+    del single, dist
+
+    # ---- mesh scoring of the built factors, counted
+    fused_score_topk.launches = 0
+    want = model._device_recommendations()
+    out["mesh_expected"] = {}
+    for name, mesh in (("tensor_mesh_1d", mesh41), ("tensor_mesh_2d",
+                                                    mesh22)):
+        before = fused_score_topk.launches
+        meshed = coffee_model(data, device, mesh=mesh)
+        meshed.set_factors(model.factors)
+        got = meshed._device_recommendations()
+        out["launches"][name] = fused_score_topk.launches - before
+        out["mesh_expected"][name] = 4 * len(meshed._test_plan.chunks)
+        check(torch.equal(got, want), f"CoffeeModel on {name}: ids == one "
+              f"device's (the same factors)")
+    out["launches"]["tensor_mesh"] = fused_score_topk.launches
+
+    if trained is not None:
+        trained["coffee"] = ServingBundle.from_model(model, topk=TOPK,
+                                                     batch_size=SERVE_BATCH)
+    del model, recs, proj, plan
+    gc.collect()
+
+    # ---- the dense tier against the event tier at small_geometry
+    small = coffee_data(small_geometry, device, warm_start=False)
+    tiers = {}
+    saved = config.get_default("hbm_score_budget_gb")
+    try:
+        for tier, budget_gb in (("dense", saved), ("events", 1e-9)):
+            config.set_default("hbm_score_budget_gb", budget_gb)
+            m = coffee_model(small, device)
+            t0 = wall()
+            m.build()
+            tiers[tier] = (m, wall() - t0, float(m.evaluate("relevance").hr))
+    finally:
+        config.set_default("hbm_score_budget_gb", saved)
+    check(("coffee_tensor", torch.float32, tiers["dense"][0].device)
+          in small.__dict__["_device_matrix_cache"],
+          "the small geometry's build took the dense tier (tensor cached)")
+    out["small_tiers"] = {tier: {"build_s": s, "hr10": hr,
+                                 "sweeps": len(m.growth_history)}
+                          for tier, (m, s, hr) in tiers.items()}
+    out["small_tiers_max_sin"] = max(
+        max_sin(tiers["dense"][0].factors[k], tiers["events"][0].factors[k])
+        for k in small.fields)
+    out["small_tiers_hr_delta"] = abs(tiers["dense"][2] - tiers["events"][2])
+    log(f"  {small_geometry}: {json.dumps(out['small_tiers'])}")
+    check(out["small_tiers_max_sin"] < 1e-3
+          and out["small_tiers_hr_delta"] <= 1e-3,
+          f"dense tier vs event tier from one start: principal angles "
+          f"(max sin) {out['small_tiers_max_sin']:.2e} < 1e-3, |dHR@{TOPK}| "
+          f"{out['small_tiers_hr_delta']:.2e} <= 1e-3")
+    predicted = tiers["events"][0].predict_feedback()
+    trained_levels = set(small.training[feedback].unique().tolist())
+    check(set(np.unique(predicted).tolist()) <= trained_levels,
+          f"predict_feedback returns trained rating values only "
+          f"({sorted(set(np.unique(predicted).tolist()))})")
+    del tiers, small
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: the serving entry point
+# --------------------------------------------------------------------------
+
+# benchmarks/serving_throughput.py: batch 1,024, 100-event histories
+SERVE_BATCH, SERVE_EVENTS = 1024, 100
+
+
+def serving_requests(n_items, rs):
+    """One batch of each request kind: id lists of 100 events (bucket
+    128), of 50 (bucket 64) and of 200 (bucket 256); rating dicts of 100
+    events (ratings 1..5); dense profiles of the same 100 events."""
+    def lists(width):
+        picks = np.argpartition(rs.rand(SERVE_BATCH, n_items), width,
+                                axis=1)[:, :width]
+        return [row.tolist() for row in picks]
+    out = {f"ids_{w}": lists(w) for w in (SERVE_EVENTS, 50, 200)}
+    ratings = rs.randint(1, 6, (SERVE_BATCH, SERVE_EVENTS))
+    out["dicts_100"] = [dict(zip(items, r.tolist())) for items, r in
+                        zip(out[f"ids_{SERVE_EVENTS}"], ratings)]
+    profiles = np.zeros((SERVE_BATCH, n_items), np.float32)
+    rows = np.repeat(np.arange(SERVE_BATCH), SERVE_EVENTS)
+    profiles[rows, np.concatenate(out[f"ids_{SERVE_EVENTS}"])] = \
+        ratings.ravel()
+    out["dense"] = profiles
+    return out
+
+
+def serve_step_fields(bundle, requests, reps=5):
+    """One request kind through the bundle: the whole call by the host
+    clock; the host assembly (the padded block); the device part (the
+    block's transfer, ``proj``, seen bits and the kernel) by CUDA events;
+    the kernel alone on the step's own inputs."""
+    import torch
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 pack_seen_bits)
+    dense = isinstance(requests, np.ndarray)
+    call = (bundle.recommend if dense else bundle.recommend_events)
+    call(requests)
+    walls = []
+    for _ in range(reps):
+        t0 = wall()
+        call(requests)
+        walls.append(wall() - t0)
+    fields = {"wall_ms": 1e3 * float(np.median(walls))}
+    if dense:
+        t0 = time.perf_counter()
+        block = bundle.assemble_dense(requests)
+        fields["host_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        def device_part():
+            return bundle.rank(bundle.dense_step_inputs(
+                block.to(bundle.device)))
+        inputs = bundle.dense_step_inputs(block.to(bundle.device))
+    else:
+        t0 = time.perf_counter()
+        assembled = bundle.assemble_events(requests)
+        fields["host_ms"] = 1e3 * (time.perf_counter() - t0)
+        fields["width"] = int(assembled[0].shape[1])
+
+        def to_dev():
+            return [None if x is None else torch.as_tensor(x).to(
+                bundle.device) for x in assembled]
+
+        def device_part():
+            return bundle.rank(bundle.events_step_inputs(*to_dev()))
+        inputs = bundle.events_step_inputs(*to_dev())
+    proj, rows, cols = inputs
+    proj = proj.float().contiguous()
+    bits = pack_seen_bits(rows, cols, proj.shape[0], bundle.n_items)
+    if proj.is_cuda:
+        fields["device_ms"] = time_ms(device_part, reps)
+        fields["device_users_per_s"] = len(requests) / (
+            fields["device_ms"] / 1e3)
+        fields["kernel_ms"] = time_ms(lambda: fused_score_topk(
+            proj, bundle.left_panel, bits, bundle.topk), reps)
+        fields["kernel_share"] = fields["kernel_ms"] / fields["wall_ms"]
+    fields["host_share"] = fields["host_ms"] / fields["wall_ms"]
+    fields["users_per_s"] = len(requests) / (fields["wall_ms"] / 1e3)
+    return fields, (proj, bits)
+
+
+def serving_phase(trained, device="cuda"):
+    """Phase 9: ``ServingBundle`` at the ML-10M catalog over the factors
+    of phases 3 (PureSVD, projection), 7 (iALS fold-in, BPR ridge) and 8
+    (CoFFee value map), batch 1,024, top-10, counted; then the gates:
+    each step's kernel against its plain version (integer factors: ids
+    identical for the projection steps; fold-in solves and trained
+    factors: re-scored picks), the short row, a save/load round trip.
+    Returns the measured fields; the caller checks the launch counts."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.runtime.serving import ServingBundle
+
+    t_phase = wall()
+    ials = {"kind": "ials", "alpha": IALS["alpha"], "weight": IALS["weight"],
+            "epsilon": IALS["epsilon"], "reg": IALS["reg"]}
+    bundles = {
+        "svd": ServingBundle(trained["svd"], topk=TOPK,
+                             batch_size=SERVE_BATCH),
+        "ials": ServingBundle(trained["ials"], topk=TOPK,
+                              batch_size=SERVE_BATCH, fold_in=ials),
+        "bpr": ServingBundle(trained["bpr"], topk=TOPK,
+                             batch_size=SERVE_BATCH,
+                             fold_in={"kind": "ridge", "reg": IALS["reg"]}),
+        "coffee": trained["coffee"]}
+    n_items = bundles["svd"].n_items
+    rs = np.random.RandomState(0)
+    requests = serving_requests(n_items, rs)
+    kinds = {"svd": ("ids_100", "dicts_100", "ids_50", "ids_200", "dense"),
+             "ials": ("ids_100", "dicts_100", "ids_50", "ids_200", "dense"),
+             "bpr": ("ids_100", "ids_50", "ids_200", "dense"),
+             "coffee": ("dicts_100", "ids_100", "ids_50", "ids_200",
+                        "dense")}
+    out = {"steps": {}, "launches": {}}
+    # ---- the drive, counted: each shape once, then one batch of each kind
+    fused_score_topk.launches = 0
+    for name, bundle in bundles.items():
+        before = fused_score_topk.launches
+        bundle.warmup(event_widths=(64, 128, 256), explicit_values=True)
+        for kind in kinds[name]:
+            call = (bundle.recommend if kind == "dense"
+                    else bundle.recommend_events)
+            recs = call(requests[kind])
+            check(recs.shape == (SERVE_BATCH, TOPK)
+                  and ((recs >= 0) & (recs < n_items)).all(),
+                  f"{name} {kind}: {SERVE_BATCH} x {TOPK} ids in range")
+        out["launches"][name] = fused_score_topk.launches - before
+    out["launches"]["serving"] = fused_score_topk.launches
+
+    # ---- times per step
+    inputs = {}
+    for name, bundle in bundles.items():
+        out["steps"][name] = {}
+        for kind in kinds[name]:
+            fields, inputs[name, kind] = serve_step_fields(bundle,
+                                                           requests[kind])
+            out["steps"][name][kind] = fields
+        log(f"  {name}: " + json.dumps({k: {f: round(x, 4) for f, x in
+                                            v.items()} for k, v in
+                                        out["steps"][name].items()}))
+
+    # ---- gates (comparison launches are not counted above)
+    for name, bundle in bundles.items():
+        for kind in kinds[name]:
+            proj, bits = inputs[name, kind]
+            log(f"  {name} {kind}: kernel vs plain version (trained)")
+            _compare(proj, bundle.left_panel.contiguous(), bits, TOPK)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, bundle in bundles.items():
+        shape = tuple(bundle.item_factors.shape)
+        factors = torch.randint(-2, 3, shape, generator=gen,
+                                device=device).float()
+        kw = {"topk": TOPK, "batch_size": SERVE_BATCH}
+        if bundle.fold_in is not None:
+            kw["fold_in"] = bundle.fold_in
+        if bundle.value_map is not None:
+            kw["value_map"] = {k: float(i - 1) for i, k in
+                               enumerate(sorted(bundle.value_map))}
+            kw["default_weight"] = float(len(bundle.value_map) - 2)
+        twin = ServingBundle(factors, **kw)
+        exact = bundle.fold_in is None
+        for kind in kinds[name][:2] + ("dense",):
+            _, (proj, bits) = serve_step_fields(twin, requests[kind], reps=1)
+            log(f"  {name} {kind}: kernel vs plain version (integer "
+                f"factors{', ids identical' if exact else ''})")
+            _compare(proj, twin.left_panel.contiguous(), bits, TOPK,
+                     exact=exact)
+    proj, bits = inputs["svd", f"ids_{SERVE_EVENTS}"]
+    out["kernel"] = mesh_shard_fields(proj, bundles["svd"].left_panel,
+                                      bits, n_items, device)
+    seen = rs.permutation(n_items)[:n_items - 3]
+    unseen = sorted(set(range(n_items)) - set(seen.tolist()))
+    for name, bundle in bundles.items():
+        for got in (bundle.recommend_events([seen.tolist()])[0],
+                    bundle.recommend(np.isin(np.arange(n_items), seen)[None]
+                                     .astype(np.float32) * 4)[0]):
+            check(sorted(got[:3].tolist()) == unseen
+                  and got[3:].tolist() == sorted(seen.tolist())[:TOPK - 3],
+                  f"{name}: a request that has seen all but 3 items gets "
+                  "them first, then its seen items in ascending id order")
+    build_dir = Path(__file__).resolve().parent / "polara_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        for name, bundle in bundles.items():
+            path = str(Path(tmp) / f"{name}.npz")
+            bundle.save(path)
+            loaded = ServingBundle.load(path, device=device)
+            kind = kinds[name][0]
+            check(np.array_equal(loaded.recommend_events(requests[kind]),
+                                 bundle.recommend_events(requests[kind])),
+                  f"{name}: save -> load gives identical ids")
     out["phase_s"] = wall() - t_phase
     return out
 
@@ -1818,7 +2360,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-7) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-9) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
@@ -1841,9 +2383,11 @@ def main() -> int:
     kernel_phase()
     log(f"  phase 2: {time.perf_counter() - t0:.2f} s")
 
+    # item factors of phases 3, 7 and 8, served in phase 9
+    trained = {}
     log("phase 3: PureSVD rank 50 at ML-10M geometry")
     t0 = time.perf_counter()
-    main = main_path(ML10M_GEOMETRY)
+    main = main_path(ML10M_GEOMETRY, trained=trained)
     check(main["launches"] > 0,
           f"the main path launched the kernel ({main['launches']}x)")
     log(f"  phase 3: {time.perf_counter() - t0:.2f} s")
@@ -1888,7 +2432,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    factor = factor_phase(ML10M_GEOMETRY, ML1M_GEOMETRY)
+    factor = factor_phase(ML10M_GEOMETRY, ML1M_GEOMETRY, trained=trained)
     for name in ("ials_dense", "ials_events", "bpr", "pmf"):
         check(factor["launches"][name] > 0,
               f"{name} launched the kernel ({factor['launches'][name]}x)")
@@ -1901,6 +2445,42 @@ def main() -> int:
         f"{factor['peak_mem_gib']:.2f} GiB")
     log("  " + json.dumps({"factor": factor}))
 
+    log("phase 8: CoFFee (HOOI) mlrank (13, 10, 2) at ML-10M geometry, its "
+        "rank search, mesh trainer and mesh scorings; the dense tier at "
+        "ML-1M geometry")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tensor = tensor_phase(ML10M_GEOMETRY, ML1M_GEOMETRY, trained=trained)
+    check(tensor["launches"]["tensor"] > 0,
+          f"the tensor path launched the kernel "
+          f"({tensor['launches']['tensor']}x)")
+    check(tensor["launches"]["tuning"] >= tensor["tuning_cells"],
+          f"the rank search launched the kernel "
+          f"{tensor['launches']['tuning']}x (>= its "
+          f"{tensor['tuning_cells']} cells)")
+    for name in ("tensor_mesh_1d", "tensor_mesh_2d"):
+        check(tensor["launches"][name] == tensor["mesh_expected"][name],
+              f"CoFFee on {name}: {tensor['launches'][name]} launches == "
+              f"user shards x item shards x chunks")
+    log(f"  phase 8: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{tensor['peak_mem_gib']:.2f} GiB")
+    log("  " + json.dumps({"tensor": tensor}))
+
+    log("phase 9: ServingBundle at the ML-10M catalog (PureSVD, iALS, BPR, "
+        "CoFFee), batch 1,024, top-10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving = serving_phase(trained)
+    del trained
+    for name in ("svd", "ials", "bpr", "coffee"):
+        check(serving["launches"][name] > 0,
+              f"the {name} bundle launched the kernel "
+              f"({serving['launches'][name]}x)")
+    log(f"  phase 9: {time.perf_counter() - t0:.2f} s")
+    log("  " + json.dumps({"serving": serving}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -1912,6 +2492,13 @@ def main() -> int:
         fields["bound_ms"], fields["bound_by"] = bound_ms(
             fields.pop("flop"), fields.pop("bytes"))
         shards[name] = fields
+    shapes = {}
+    for name, fields in (("tensor_scoring", tensor["kernel"]),
+                         ("serving_batch", serving["kernel"])):
+        fields = dict(fields)
+        fields["bound_ms"], fields["bound_by"] = bound_ms(
+            fields.pop("flop"), fields.pop("bytes"))
+        shapes[name] = fields
     log(json.dumps({"kernels": [{
         "name": "fused_score_topk", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1922,7 +2509,11 @@ def main() -> int:
                              "factor": sum(factor["launches"][name] for name
                                            in ("popularity", "ials_dense",
                                                "ials_events", "bpr", "pmf")),
-                             "factor_mesh": factor["mesh_launches"]},
+                             "factor_mesh": factor["mesh_launches"],
+                             "tensor": tensor["launches"]["tensor"],
+                             "tensor_tuning": tensor["launches"]["tuning"],
+                             "tensor_mesh": tensor["launches"]["tensor_mesh"],
+                             "serving": serving["launches"]["serving"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,
@@ -1931,7 +2522,8 @@ def main() -> int:
         "phase_ms": main["phase_ms"],
         "clocks_under_load": main["kernel_clocks"],
         "ptxas": ptxas, "sweep_top_rank": top, "mesh_shard": shards,
-        "mesh_merge_ms": mesh.get("merge_ms")}], "build_s": build_s}))
+        "mesh_merge_ms": mesh.get("merge_ms"), **shapes}],
+        "build_s": build_s}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

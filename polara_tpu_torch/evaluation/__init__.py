@@ -13,6 +13,7 @@ _LAZY = {
     "holdout_test": "engine", "evaluate_models": "engine",
     "consolidate_metrics": "engine", "average_results": "engine",
     "find_optimal_svd_rank": "pipelines",
+    "find_optimal_tucker_ranks": "pipelines",
     "find_optimal_config": "pipelines", "random_grid": "pipelines",
 }
 

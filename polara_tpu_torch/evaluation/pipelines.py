@@ -4,7 +4,8 @@ Counterpart of :mod:`polara_tpu.evaluation.pipelines` (reference
 ``polara/evaluation/pipelines.py``).  The structural trick: factor models
 are built once at the **largest** requested rank and evaluated downward by
 truncating cached factors — turning a rank sweep into one build + cheap
-re-scorings.  ``find_optimal_tucker_ranks`` waits for the CoFFee model.
+re-scorings (for the CoFFee model, :func:`find_optimal_tucker_ranks`,
+by rounding its Tucker core).
 """
 from __future__ import annotations
 
@@ -168,6 +169,57 @@ def find_optimal_svd_rank(model, ranks: Sequence[int], target_metric,
         scores.name = model.method
         return best_rank, scores.loc[list(ranks)]
     return best_rank
+
+
+def find_optimal_tucker_ranks(model, tucker_ranks: Sequence[Sequence[int]],
+                              target_metric, return_scores: bool = False,
+                              config: Optional[Dict] = None,
+                              verbose: bool = False,
+                              same_space: bool = False,
+                              evaluator: Optional[Callable] = None,
+                              iterator: Callable = lambda x: x, **kwargs):
+    """Multilinear rank sweep via one max-rank build + core rounding.
+
+    Skips infeasible cores violating the rank triangle inequality
+    (r_i * r_j >= r_k), reference ``pipelines.py:141-143``.
+    """
+    evaluator = evaluator or evaluate_models
+    model_verbose = model.verbose
+    if config:
+        set_config(model, config)
+
+    model.mlrank = tuple(max(r) for r in tucker_ranks)
+    if not model._is_ready:
+        model.verbose = verbose
+        model.build()
+    saved_factors = dict(**model.factors)
+    top_mlrank = model.mlrank
+
+    results = {}
+    for r1 in iterator(tucker_ranks[0]):
+        for r2 in tucker_ranks[1]:
+            if same_space and r2 != r1:
+                continue
+            for r3 in tucker_ranks[2]:
+                if r1 * r2 < r3 or r1 * r3 < r2 or r2 * r3 < r1:
+                    continue
+                try:
+                    model.mlrank = (r1, r2, r3)
+                    results[(r1, r2, r3)] = evaluator(
+                        model, target_metric, **kwargs)[model.method]
+                    model._recommendations = None
+                finally:
+                    model._mlrank = top_mlrank
+                    model.factors = dict(**saved_factors)
+    model.verbose = model_verbose
+
+    scores = pd.Series(results).sort_index()
+    best_mlrank = scores.idxmax()
+    if return_scores:
+        scores.index.names = ["r1", "r2", "r3"]
+        scores.name = model.method
+        return best_mlrank, scores
+    return best_mlrank
 
 
 def params_to_dict(names, params) -> Dict:

@@ -1,6 +1,7 @@
 from polara_tpu_torch.models.base import EmbeddingsMixin, RecommenderModel
 from polara_tpu_torch.models.baselines import (CooccurrenceModel,
                                                PopularityModel, RandomModel)
+from polara_tpu_torch.models.coffee import CoffeeModel
 from polara_tpu_torch.models.implicit_mf import ImplicitALS, ImplicitBPR
 from polara_tpu_torch.models.mf import ProbabilisticMF
 from polara_tpu_torch.models.svd import (ScaledMatrixMixin, ScaledSVD,
@@ -8,5 +9,5 @@ from polara_tpu_torch.models.svd import (ScaledMatrixMixin, ScaledSVD,
 
 __all__ = ["RecommenderModel", "EmbeddingsMixin", "PopularityModel",
            "RandomModel", "CooccurrenceModel", "SVDModel", "ScaledSVD",
-           "ScaledMatrixMixin", "ProbabilisticMF", "ImplicitALS",
-           "ImplicitBPR"]
+           "ScaledMatrixMixin", "ProbabilisticMF", "CoffeeModel",
+           "ImplicitALS", "ImplicitBPR"]

@@ -247,14 +247,16 @@ class RecommenderModel:
         return 1
 
     def _get_test_data(self, feedback_threshold=None):
-        test_shape = self.data.get_test_shape(tensor_mode=False)
+        # tensor models (CoFFee) read feedback-level indices as values
+        tensor_mode = getattr(self, "is_tensor_model", False)
+        test_shape = self.data.get_test_shape(tensor_mode=tensor_mode)
         threshold = feedback_threshold or self.feedback_threshold
         if self.data.warm_start:
             if threshold and self.verbose:
                 print("Specifying threshold has no effect in warm start.")
             threshold = None
         user_idx, item_idx, feedback = self.data.test_to_coo(
-            tensor_mode=False, feedback_threshold=threshold)
+            tensor_mode=tensor_mode, feedback_threshold=threshold)
 
         diffs = np.diff(user_idx)
         if (diffs < 0).any():
@@ -271,12 +273,13 @@ class RecommenderModel:
     def _build_test_plan(self) -> Tuple[ChunkedTestData, np.ndarray]:
         # plans (and their packed seen bits) are shared across models with
         # the same effective test view: cached on the data object,
-        # invalidated whenever the split changes
+        # invalidated whenever the split changes.  A tensor model's plan
+        # holds feedback-level indices where the others hold ratings.
         threshold = (None if self.data.warm_start
                      else self.feedback_threshold)
         n_shards, n_devices = self._mesh_layout()
-        key = (threshold, self.scores_multiplier, self.device, n_shards,
-               n_devices)
+        key = (getattr(self, "is_tensor_model", False), threshold,
+               self.scores_multiplier, self.device, n_shards, n_devices)
         cache = self.data.__dict__.setdefault("_test_plan_cache", {})
         hit = cache.get(key)
         if hit is not None:

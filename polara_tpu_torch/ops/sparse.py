@@ -55,7 +55,7 @@ def _dense_rmm(operands, x, out_dim):
     return operands[0].T @ x
 
 
-def sorted_rows_matmul(rows: torch.Tensor, cols: torch.Tensor,
+def sorted_rows_matmul(rows: Optional[torch.Tensor], cols: torch.Tensor,
                        vals: torch.Tensor, x: torch.Tensor, n_rows: int,
                        lengths: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -65,7 +65,7 @@ def sorted_rows_matmul(rows: torch.Tensor, cols: torch.Tensor,
     thread, so the result has the same bits on every call.  On the card
     ``index_add_`` sums with atomics and a CSR ``torch.sparse.mm``
     (cuSPARSE) also changes its order between calls.  ``lengths``: the
-    entries per row, if known."""
+    entries per row, if known (``rows`` is then not read)."""
     if lengths is None:
         lengths = torch.bincount(rows, minlength=n_rows)
     terms = vals[:, None].to(x.dtype) * x[cols]
@@ -238,21 +238,50 @@ def coo_from_arrays(idx: np.ndarray, val: np.ndarray,
                                 resolve_device(device, "coo_from_arrays"))
 
 
+# cells of the f64 accumulator the host path of dense_from_coo allocates at
+# once: a bigger target accumulates in blocks of leading-dimension slices
+DENSE_BLOCK_CELLS = 1 << 26
+
+
 def dense_from_coo(idx: np.ndarray, val: np.ndarray,
                    shape: Tuple[int, ...],
                    dtype: torch.dtype = torch.float32,
                    device: Device = None) -> torch.Tensor:
     """Dense block from COO: numpy ``(nnz, d)`` index arrays accumulate on
     the host in f64 (like the JAX package) and move over in one copy;
-    tensors accumulate on ``device``."""
+    tensors accumulate on ``device``.
+
+    Past ``DENSE_BLOCK_CELLS`` cells the host path accumulates one block
+    of leading-dimension slices at a time into the output, so the f64
+    transient stays near 512 MB instead of twice the tensor; each cell's
+    sum runs over its events in the same order either way, so the result
+    has the same bits."""
     shape = tuple(int(s) for s in shape)
     device = resolve_device(device, "dense_from_coo")
     if isinstance(idx, np.ndarray) and isinstance(val, np.ndarray):
-        flat = np.ravel_multi_index(
-            tuple(idx[:, d] for d in range(idx.shape[1])), shape)
-        out = np.bincount(flat, weights=val, minlength=int(np.prod(shape)))
-        return torch.as_tensor(out.reshape(shape)).to(device=device,
-                                                      dtype=dtype)
+        total = int(np.prod(shape))
+        if total <= DENSE_BLOCK_CELLS:
+            flat = np.ravel_multi_index(
+                tuple(idx[:, d] for d in range(idx.shape[1])), shape)
+            out = np.bincount(flat, weights=val, minlength=total)
+            return torch.as_tensor(out.reshape(shape)).to(device=device,
+                                                          dtype=dtype)
+        out = torch.empty(shape, dtype=dtype)
+        inner = total // shape[0]
+        rows_per_block = max(1, DENSE_BLOCK_CELLS // inner)
+        lead = idx[:, 0]
+        inner_flat = (np.ravel_multi_index(
+            tuple(idx[:, d] for d in range(1, idx.shape[1])), shape[1:])
+            if idx.shape[1] > 1 else np.zeros(len(idx), np.int64))
+        for lo in range(0, shape[0], rows_per_block):
+            hi = min(lo + rows_per_block, shape[0])
+            sel = (lead >= lo) & (lead < hi)
+            block = np.bincount((lead[sel] - lo) * inner + inner_flat[sel],
+                                weights=val[sel],
+                                minlength=(hi - lo) * inner)
+            out[lo:hi] = torch.from_numpy(block.reshape((hi - lo,)
+                                                        + shape[1:]))
+        return out.to(device)
     idx = torch.as_tensor(idx, device=device).long()
     out = torch.zeros(shape, dtype=dtype, device=device)
     return out.index_put_(tuple(idx[:, d] for d in range(idx.shape[1])),

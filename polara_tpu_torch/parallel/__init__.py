@@ -1,7 +1,8 @@
 """Training and scoring over a device mesh (counterpart of
-:mod:`polara_tpu.parallel`: the SVD family, iALS and BPR)."""
+:mod:`polara_tpu.parallel`: the SVD family, iALS, BPR and HOOI)."""
 from polara_tpu_torch.parallel.distributed import (cholesky_qr2,
                                                    distributed_bpr,
+                                                   distributed_hooi,
                                                    distributed_ials,
                                                    distributed_randomized_svd,
                                                    full_train_step,
@@ -12,7 +13,7 @@ from polara_tpu_torch.runtime.mesh import (get_default_mesh, make_mesh,
                                            use_mesh, user_sharding)
 
 __all__ = ["cholesky_qr2", "distributed_randomized_svd",
-           "distributed_ials", "distributed_bpr",
+           "distributed_ials", "distributed_bpr", "distributed_hooi",
            "score_mask_topk_step", "sharded_score_topk_2d",
            "full_train_step",
            "make_mesh", "user_sharding", "shard_rows",

@@ -22,16 +22,19 @@ device, and the collectives are the copies of
 * **iALS** (:func:`distributed_ials`): the confidence block shards by
   users; the item systems are summed from per-shard partials;
 * **BPR** (:func:`distributed_bpr`): the batch's gradient math shards,
-  or each shard runs its own chain (local SGD).
+  or each shard runs its own chain (local SGD);
+* **HOOI** (:func:`distributed_hooi`): the tensor's events shard, and
+  the per-shard (entity x level x rank) sums are added in shard order.
 
-The event-sharded trainers of the JAX module
-(``distributed_chunked_rsvd``, ``distributed_ials_events``,
-``distributed_hooi``) are not ported yet.
+The other event-sharded trainers of the JAX module
+(``distributed_chunked_rsvd``, ``distributed_ials_events``) are not
+ported yet.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from polara_tpu_torch.ops.rsvd import SvdResult, cholesky_qr2
@@ -447,3 +450,60 @@ def distributed_bpr(rows, cols, shape, rank: int, mesh: Mesh,
         train_stats.update(mode=update_mode, n_devices=n_dev,
                            steps_per_epoch=n_steps, epochs=epochs_log)
     return ImplicitFactors(user=x_rep[home], item=y_rep[home])
+
+
+def distributed_hooi(idx: np.ndarray, val: np.ndarray, shape, core_shape,
+                     mesh: Mesh, num_iters: int = 25,
+                     growth_tol: float = 1e-4, seed: Optional[int] = None,
+                     dtype: torch.dtype = torch.float32,
+                     verbose: bool = False,
+                     qr_method: Optional[str] = None,
+                     init_factors: Optional[Tuple] = None):
+    """HOOI with the tensor's events (numpy ``idx`` (nnz, 3) and ``val``)
+    split over the mesh's first axis.
+
+    The events pad with zero values to a multiple of the axis and split
+    into equal contiguous shards, each staged on its shard's device in
+    the sweep's two orders.  Each sweep, every shard forms its partial
+    (n_mode x n_fb x r) sums from its own events (the O(nnz·r) work) and
+    the partials are added on the home device in shard order, so two runs
+    give the same bits; the skinny factor updates, which the JAX package
+    replicates on every device, run once there.  Padding events add zero
+    terms, so the split changes the math only by the order of float sums.
+    The start is :func:`~polara_tpu_torch.ops.hooi.hooi`'s (the same
+    generator draws, on the home device)."""
+    from polara_tpu_torch.ops.hooi import (_entity_feedback_sums,
+                                           _hooi_until, check_core_shape,
+                                           initial_factors,
+                                           stage_hooi_events)
+    from polara_tpu_torch.ops.rsvd import _qr_method
+
+    devices = users_devices(mesh)
+    home = devices[0]
+    shape = tuple(int(s) for s in shape)
+    core_shape = tuple(int(r) for r in core_shape)
+    check_core_shape(shape, core_shape)
+    n0, _, n2 = shape
+    u1, u2 = initial_factors(shape, core_shape, seed, dtype, home,
+                             init_factors)
+    u0 = torch.zeros((n0, core_shape[0]), dtype=dtype, device=home)
+
+    idx = np.asarray(idx)
+    val = np.asarray(val, np.float64)
+    pad = (-len(val)) % len(devices)
+    idx = np.concatenate([idx, np.zeros((pad, idx.shape[1]), idx.dtype)])
+    val = np.concatenate([val, np.zeros(pad)])
+    per = len(val) // len(devices)
+    staged = [stage_hooi_events(idx[i * per:(i + 1) * per],
+                                val[i * per:(i + 1) * per], shape, dtype,
+                                device)
+              for i, device in enumerate(devices)]
+
+    def sums(side, factor):
+        return psum([_entity_feedback_sums(sides[side], factor.to(device),
+                                           n2)
+                     for sides, device in zip(staged, devices)], home)
+
+    return _hooi_until(sums, u0, u1, u2, shape, core_shape, num_iters,
+                       float(growth_tol), _qr_method(qr_method),
+                       verbose=verbose, label="distributed HOOI")

@@ -1,5 +1,7 @@
 """Runtime support: randomness, memory planning, device meshes, timing,
-conversion, checkpoints and display helpers."""
+conversion, checkpoints, display helpers and the serving bundle
+(``ServingBundle`` loads on first use: it imports the device operators,
+which import this package)."""
 from polara_tpu_torch.runtime.checkpoint import load_factors, save_factors
 from polara_tpu_torch.runtime.display import print_frames, suppress_stdout
 from polara_tpu_torch.runtime.memory import plan_user_chunks, range_division
@@ -13,4 +15,11 @@ __all__ = ["track_time", "format_elapsed_time", "check_random_state",
            "plan_user_chunks", "range_division", "save_factors",
            "load_factors", "print_frames", "suppress_stdout", "make_mesh",
            "user_sharding", "shard_rows", "set_default_mesh",
-           "get_default_mesh", "use_mesh"]
+           "get_default_mesh", "use_mesh", "ServingBundle"]
+
+
+def __getattr__(name):
+    if name == "ServingBundle":
+        from polara_tpu_torch.runtime.serving import ServingBundle
+        return ServingBundle
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,10 +4,12 @@ A JAX model's ``factors`` dict (converted to numpy by the caller, e.g.
 ``{k: np.asarray(v) for k, v in model.factors.items()}``) becomes a dict
 of port tensors; :meth:`RecommenderModel.set_factors` then makes a port
 model ready without a build.  Any factors dict carries across: the SVD
-family's (item factors, singular values, user factors or None) and the
+family's (item factors, singular values, user factors or None), the
 user and item factors of ``ProbabilisticMF``, ``ImplicitALS`` and
 ``ImplicitBPR``, whose port then scores (and, for iALS and BPR, folds in
-warm-start users) from the JAX model's factors.
+warm-start users) from the JAX model's factors, and ``CoffeeModel``'s
+user, item and feedback factors with its ``core`` (its ``set_factors``
+also makes the data's feedback-level index, so no build is needed).
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ UNPORTED = {
         "make_realistic_coo", "make_realistic_interactions",
     },
     "polara_tpu.models": {
-        "CoffeeModel", "SimilarityAggregation",
+        "SimilarityAggregation",
         "KernelizedPMF", "LCEModel", "HybridSVD", "ScaledHybridSVD",
         "RandomModelItemColdStart", "PopularityModelItemColdStart",
         "SimilarityAggregationItemColdStart", "SVDModelItemColdStart",
@@ -42,7 +42,6 @@ UNPORTED = {
     },
     "polara_tpu.parallel": {
         "distributed_chunked_rsvd", "distributed_ials_events",
-        "distributed_hooi",
     },
     "polara_tpu.preprocessing": {
         "dataframes", "features", "matrices",
@@ -54,7 +53,6 @@ UNPORTED = {
         "timed_blocked", "profiler_trace", "enable_compilation_cache",
         "random_seeds", "key_from_seed", "pad_dim", "array_split",
         "get_chunk_size", "get_available_memory", "read_npz_from_url",
-        "ServingBundle",
     },
 }
 

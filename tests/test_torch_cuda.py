@@ -265,3 +265,104 @@ def test_bpr_on_the_card_learns_like_the_cpu():
             last.append(stats[-1])
         aucs[str(dev)] = np.mean(last)
     assert abs(aucs["cpu"] - aucs[str(device)]) <= 0.03, aucs
+
+
+def _serving_case(device, n_items=3000, rank=16, batch=1024, width=100,
+                  seed=3):
+    """Integer factors and ``batch`` event histories of ``width`` items
+    (the last row has seen all but three items)."""
+    rs = np.random.RandomState(seed)
+    factors = rs.randint(-2, 3, (n_items, rank)).astype(np.float32)
+    events = [rs.choice(n_items, width, replace=False).tolist()
+              for _ in range(batch - 1)]
+    events.append(rs.permutation(n_items)[:n_items - 3].tolist())
+    return factors, events
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold_in", [None, "ials", "ridge"])
+def test_serve_steps_match_the_plain_route(fold_in):
+    """Each serve step of a bundle on the card at batch 1,024 (100-event
+    lists, bucket 128, and dense profiles) launches the kernel once per
+    batch; on the step's own ``proj`` the kernel's ids equal the plain
+    version's (integer factors: exact scores) or, for the fold-in solves,
+    score within 1e-5 of the row's largest |score| of the plain pick at
+    each slot.  The ids equal a CPU bundle's (fold-in: the short row's
+    fill)."""
+    from polara_tpu_torch.runtime.serving import ServingBundle
+    device = _cuda()
+    factors, events = _serving_case(device)
+    spec = None if fold_in is None else {"kind": fold_in}
+    bundle = ServingBundle(factors, batch_size=1024, device=device,
+                           fold_in=spec)
+    cpu = ServingBundle(factors, batch_size=1024, device="cpu", fold_in=spec)
+    ids, values, lengths = bundle.assemble_events(events[:-1])
+    dev = [None if x is None else torch.as_tensor(x).to(device)
+           for x in (ids, values, lengths)]
+    profiles = np.zeros((1024, factors.shape[0]), np.float32)
+    for row, items in enumerate(events):
+        profiles[row, items] = 1 + row % 5
+    for inputs in (bundle.events_step_inputs(*dev),
+                   bundle.dense_step_inputs(torch.as_tensor(profiles)
+                                            .to(device))):
+        proj, rows, cols = inputs
+        before = tf.fused_score_topk.launches
+        got = bundle.rank(inputs)
+        assert tf.fused_score_topk.launches == before + 1
+        bits = tf.pack_seen_bits(rows, cols, proj.shape[0], factors.shape[0])
+        want = tf.fused_score_topk_reference(
+            proj.float(), bundle.left_panel, bits, bundle.topk)
+        if fold_in is None:
+            assert torch.equal(got, want)
+        else:
+            s64 = proj.double() @ bundle.left_panel.double().T
+            scale = s64.abs().amax(1, keepdim=True)
+            gap = (s64.gather(1, want.long().clamp(min=0))
+                   - s64.gather(1, got.long().clamp(min=0))).abs()
+            assert bool((gap <= 1e-5 * scale).all())
+    got = bundle.recommend_events(events)
+    want = cpu.recommend_events(events)
+    if fold_in is None:
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[-1][3:], want[-1][3:])
+    assert sorted(got[-1][3:]) == list(got[-1][3:])
+
+
+@pytest.mark.cuda
+def test_coffee_builds_are_bit_identical_on_the_card():
+    """Two ``CoffeeModel`` builds with one seed on the card, on the dense
+    tier and on the event tier (sorted segment sums): identical factor
+    bits and identical recommendations; the tiers' HR@10 within 0.02."""
+    from polara_tpu_torch import config
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets.synthetic import \
+        make_synthetic_interactions
+    from polara_tpu_torch.models import CoffeeModel
+    device = _cuda()
+    data = RecommenderData(make_synthetic_interactions(
+        n_users=600, n_items=300, n_events=20_000, seed=0), "userid",
+        "movieid", "rating", seed=0, verbose=False)
+    data.warm_start = False
+    data.holdout_size = 1
+    data.prepare()
+    saved = config.get_default("hbm_score_budget_gb")
+    hr = {}
+    try:
+        for tier, budget in (("dense", saved), ("events", 1e-9)):
+            config.set_default("hbm_score_budget_gb", budget)
+            runs = []
+            for _ in range(2):
+                model = CoffeeModel(data, device=device)
+                model.verbose = False
+                model.mlrank = (13, 10, 2)
+                model.seed = 0
+                model.build()
+                runs.append(model)
+            for name, factor in runs[0].factors.items():
+                assert torch.equal(factor, runs[1].factors[name]), name
+            np.testing.assert_array_equal(runs[0].recommendations,
+                                          runs[1].recommendations)
+            hr[tier] = runs[0].evaluate("relevance").hr
+    finally:
+        config.set_default("hbm_score_budget_gb", saved)
+    assert abs(hr["dense"] - hr["events"]) <= 0.02, hr
