@@ -104,7 +104,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gives identical ids.  Times per step: the whole call (host clock), the
    host assembly, the device part (CUDA events), the kernel alone.
 
-pandas is required (phases 4-9): without it the script exits non-zero
+10. The side-information path: ``benchmarks/hybrid_svd.py``'s HybridSVD
+   (rank 30, ``features_weight`` 0.5 so ``L Lᵀ = S + I``, six power
+   iterations, the synthetic PSD similarity of a 32-wide base drawn on
+   the card) through ``SimilarityDataModel`` in phase 8's scenario at
+   ML-10M geometry: the 10,677² Cholesky, the densified ``Rᵀ·L``
+   operator, the projectors, scoring through the kernel over the left
+   projector.  Beside it ScaledHybridSVD, SIM (dense ``profile @ S``),
+   S = I against PureSVD-30 on the same split, a ``features_weight``
+   change; KPMF (a genre-kNN Laplacian) and LCE at ML-1M geometry with
+   known users; the item cold-start scenario at ML-10M geometry (20% of
+   the items cold, synthetic genres: 19 labels, 1-3 per item) for MP,
+   RND, SIM, PureSVD-50, PureSVD-s-50, HybridSVD-30 and LCE-10; the
+   HybridSVD serving bundle at batch 1,024.  Gates: the kernel ran for
+   each fused model and the bundle, ``fused_ok`` for both hybrids,
+   KPMF and LCE, HybridSVD's HR@10 above popularity's, two ``proj_chunk`` calls
+   bit-identical, S = I top-10 overlap >= 0.99 and |dHR@10| <= 1e-3,
+   the refactorization and rebuild, SIM's picks equal a stable-sort
+   top-k of its scores, KPMF's RMSE and LCE's objective not rising,
+   every cold-start model's picks shaped and in range with finite
+   metrics, PureSVD(cs) and HybridSVD(cs) above RND(cs) on hits,
+   HybridSVD(cs)'s picks equal a stable-sort top-k of its scores, the
+   bundle's kernel ids equal its plain version's on integer twins with
+   left != right.  Times: the Cholesky, one operator ``mm``/``rmm``,
+   the projector products, builds, warm scoring, ``profile @ S``, each
+   cold-start model, the serving call, peak memory.
+
+pandas is required (phases 4-10): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -114,10 +140,11 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-9;
+and then the score kernel, and ``launches_by_path`` those of phases 3-10;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
 ``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
-shape, ``serving_batch`` at one serving batch, and ``mesh_merge_ms``), and as
+shape, ``serving_batch`` at one serving batch, ``hybrid_scoring`` at
+HybridSVD's, and ``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
@@ -1509,6 +1536,20 @@ def _fused_gap(plan, user, item, recs, n_items, verify_users=VERIFY_USERS):
     return (s_plain - s_kern).abs().max().item() / scale
 
 
+def _known_user_gap(model):
+    """``_fused_gap`` of a known-user factor model (PMF's factor lookup):
+    its test users' rows of the user factors against its item panel."""
+    import torch
+    params = model.score_params()
+    check(model.uses_fused_scoring(params),
+          f"{model.method} routes to the kernel over its item factors")
+    panel = params["item_panel"]
+    users = torch.as_tensor(model._test_users, device=panel.device)
+    proj = model.factors[model.data.fields.userid].index_select(0, users)
+    return _fused_gap(model._test_plan, proj, panel,
+                      model._device_recommendations(), panel.shape[0])
+
+
 def _overlap(a, b):
     """Mean share of each row's ids that the other row also holds."""
     return ((a[:, :, None] == b[:, None, :]).sum((1, 2)).double()
@@ -2307,6 +2348,466 @@ def serving_phase(trained, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the side-information path
+# --------------------------------------------------------------------------
+
+# benchmarks/hybrid_svd.py: HybridSVD rank 30, features_weight 0.5
+# (beta = 1), six power iterations, the similarity of a 32-wide base
+HYBRID_RANK, HYBRID_ITERS, SIM_BASE = 30, 6, 32
+# synthetic genres: 19 labels, 1-3 per item; KPMF's 10 nearest items
+N_GENRES, GENRE_NEIGHBOURS = 19, 10
+COLD_SVD_RANK, COLD_LCE_RANK = 50, 10
+
+
+def synthetic_similarity(n_items, device, seed=0):
+    """``benchmarks/hybrid_svd.py``'s item similarity drawn on ``device``
+    (a ``torch.Generator``): ``base`` N(0, 1) of (n_items x 32), ``S =
+    0.5 corr(base baseᵀ)`` with a unit diagonal, so ``S + I`` is positive
+    definite (456 MB f32 at the ML-10M catalog; it never visits the
+    host)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((n_items, SIM_BASE), generator=gen, device=device)
+    sim = base @ base.T
+    diag = torch.sqrt(torch.diagonal(sim))
+    sim.div_(diag[:, None]).div_(diag[None, :]).mul_(0.5)
+    return sim.fill_diagonal_(1.0)
+
+
+def synthetic_genres(item_ids):
+    """Genre lists per item: 19 labels, 1-3 per item, Zipf-skewed
+    (``numpy.random.RandomState(0)``), written as MovieLens's
+    ``|``-joined genre strings and read back through
+    ``get_split_genres``; a one-column frame indexed by item id."""
+    import pandas as pd
+    from polara_tpu_torch.datasets import get_split_genres
+    rs = np.random.RandomState(0)
+    weights = 1.0 / np.arange(1, N_GENRES + 1)
+    weights /= weights.sum()
+    names = np.array([f"genre{g:02d}" for g in range(N_GENRES)])
+    genres = ["|".join(names[np.sort(rs.choice(N_GENRES, n, replace=False,
+                                               p=weights))])
+              for n in rs.randint(1, 4, len(item_ids))]
+    movies = pd.DataFrame({"movieid": item_ids,
+                           "movienm": [f"movie {i}" for i in item_ids],
+                           "genres": genres})
+    lists = get_split_genres(movies).groupby("movieid", sort=False)[
+        "genreid"].agg(list)
+    return pd.DataFrame({"genres": lists}).reindex(item_ids)
+
+
+def side_data(frame, cls, warm_start=True, **kwargs):
+    """Phase 8's scenario (one random held-out event per test user, 20%
+    test users, data seed 0) in the data model ``cls``."""
+    data = cls(frame.copy(), "userid", "movieid", "rating", seed=0,
+               verbose=False, **kwargs)
+    data.warm_start = warm_start
+    data.holdout_size = 1
+    data.test_ratio = 0.2
+    data.random_holdout = True
+    data.prepare()
+    return data
+
+
+def hybrid_model(cls, data, device, rank=HYBRID_RANK, **attrs):
+    """A SVD-family model at the benchmark's solver setting: six power
+    iterations (no tolerance loop), seed 0."""
+    model = cls(data, device=device, **attrs)
+    model.verbose = False
+    model.rank = rank
+    model.svd_tol = None
+    model.svd_iters = HYBRID_ITERS
+    model.seed = 0
+    return model
+
+
+def dense_profiles(plan, n_items):
+    """The test users' profile block (users x items) on the plan's
+    device, built chunk by chunk from the plan's events."""
+    import torch
+    out = torch.zeros((plan.n_users, n_items), device=plan.device)
+    for chunk in plan.chunks:
+        rows = chunk.rows[chunk.valid] + chunk.start
+        out.index_put_((rows, chunk.cols[chunk.valid]),
+                       chunk.vals[chunk.valid].float())
+    return out
+
+
+def genre_laplacian(genres, device):
+    """KPMF's item relations: the graph Laplacian
+    (``compute_graph_laplacian``) of each item's ten nearest items by
+    genre vector (``knn_graph`` over the stacked one-hot genres)."""
+    import pandas as pd
+    import torch
+    from polara_tpu_torch.datasets import compute_graph_laplacian
+    from polara_tpu_torch.models.hybrid import knn_graph
+    from polara_tpu_torch.preprocessing.features import stack_features
+    one_hot, _ = stack_features(genres, normalize=False)
+    adjacency = knn_graph(torch.as_tensor(one_hot.toarray()).to(device),
+                          GENRE_NEIGHBOURS)
+    rows, cols = (x.cpu().numpy() for x in torch.nonzero(adjacency,
+                                                         as_tuple=True))
+    ids = genres.index.to_numpy()
+    laplacian, _ = compute_graph_laplacian(zip(ids[rows], ids[cols]),
+                                           pd.Index(ids))
+    return laplacian
+
+
+def _metric_fields(scores):
+    return {name: float(value) for record in scores
+            for name, value in record._asdict().items() if value is not None}
+
+
+def side_phase(geometry, small_geometry, device="cuda"):
+    """Phase 10: HybridSVD rank 30 at ``geometry`` through
+    ``SimilarityDataModel`` (phase 8's scenario), scored through the
+    kernel, beside ScaledHybridSVD, SIM, the S = I check against
+    PureSVD-30 and a ``features_weight`` change; KPMF and LCE at
+    ``small_geometry`` with known users; the item cold-start scenario at
+    ``geometry``; the HybridSVD serving bundle.  Returns the measured
+    fields; raises on a failed gate except the launch counts
+    (``launches``), which the caller checks."""
+    import torch
+    from polara_tpu_torch.data import (ItemColdStartSimilarityData,
+                                       RecommenderData, SideRelationsMixin,
+                                       SimilarityDataModel)
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch import models as pm
+    from polara_tpu_torch.ops.cholesky import CholeskyFactor, hybrid_operator
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.runtime.serving import ServingBundle
+
+    t_phase = wall()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}}
+    n_items = geometry["n_items"]
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
+                                                    device=device))
+    sim = synthetic_similarity(n_items, device)
+    relations = {"relations_matrices": {"movieid": sim, "userid": None},
+                 "relations_indices": {"movieid": np.arange(n_items),
+                                       "userid": None}}
+    t0 = wall()
+    data = side_data(frame, SimilarityDataModel, **relations)
+    out["prepare_s"] = wall() - t0
+
+    # ---- HybridSVD as a user drives it: build, evaluate, counted
+    fused_score_topk.launches = 0
+    model = hybrid_model(pm.HybridSVD, data, device)
+    t0 = wall()
+    model.build()
+    out["build_s"] = wall() - t0
+    t0 = wall()
+    scores = model.evaluate(["relevance", "ranking"])
+    out["evaluate_s"] = wall() - t0
+    out["hr10"], out["mrr10"] = float(scores[0].hr), float(scores[1].mrr)
+    with Timer() as t:
+        model.get_recommendations()
+    out["scoring_warm_ms"] = t.seconds * 1e3
+    out["launches"]["hybrid"] = fused_score_topk.launches
+    recs = model._device_recommendations()
+    log(f"  HybridSVD-{HYBRID_RANK}: build {out['build_s']:.3f} s, HR@{TOPK}"
+        f" {out['hr10']:.5f} MRR@{TOPK} {out['mrr10']:.5f}; "
+        f"{out['launches']['hybrid']} launch(es)")
+
+    plan = model._test_plan
+    params = model.score_params()
+    head = plan.chunks[0]
+    proj = pm.HybridSVD.proj_chunk(params, head)
+    left = params["projector_left"]
+    check(params["item_panel"] is left and model.uses_fused_scoring(params),
+          "HybridSVD routes to the kernel over its left projector")
+    out["fused_gap"] = _fused_gap(plan, proj, left, recs, n_items)
+    check(out["fused_gap"] < 1e-3, f"HybridSVD fused_ok: re-scored gap "
+          f"{out['fused_gap']:.2e} < 1e-3")
+    check(torch.equal(proj, pm.HybridSVD.proj_chunk(params, head)),
+          "two proj_chunk calls give bit-identical projections")
+    pop = pm.PopularityModel(data, device=device)
+    pop.verbose = False
+    out["popularity_hr10"] = float(pop.evaluate("relevance").hr)
+    check(out["hr10"] > out["popularity_hr10"],
+          f"HybridSVD HR@{TOPK} {out['hr10']:.5f} > popularity's "
+          f"{out['popularity_hr10']:.5f}")
+
+    # the parts of the build at these inputs, and the kernel at this shape
+    similarity = model.device_relations("movieid")
+    chol = model.item_cholesky_factor
+    v = model.factors["movieid"]
+    if on_card:
+        out["cholesky_ms"] = time_ms(
+            lambda: CholeskyFactor.factorize(similarity, 1.0), 3)
+        op = hybrid_operator(model.get_training_matrix().to_dense(), None,
+                             chol.L)
+        block = HYBRID_RANK + max(10, HYBRID_RANK)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x = torch.randn((n_items, block), generator=gen, device=device)
+        y = torch.randn((op.shape[0], block), generator=gen, device=device)
+        out["operator_mm_ms"] = time_ms(lambda: op.mm(x), 5)
+        out["operator_rmm_ms"] = time_ms(lambda: op.rmm(y), 5)
+        del op, x, y
+        out["projector_solves_ms"] = time_ms(
+            lambda: (chol.T.solve(v), chol.dot(v)), 5)
+    perm, inv = plan.pop_order(n_items)
+    panel = left.index_select(0, torch.as_tensor(perm, device=left.device))
+    bits = plan.seen_bits(0, n_items, col_map=inv,
+                          map_token=("pop", n_items))
+    out["kernel"] = mesh_shard_fields(proj.contiguous(), panel.contiguous(),
+                                      bits, n_items, device)
+    del panel, bits
+
+    # ---- features_weight 0.5 -> 0.8 refactorizes in place and rebuilds
+    before = chol.L[:64, :64].clone()
+    t0 = wall()
+    model.features_weight = 0.8
+    out["refactorize_s"] = wall() - t0
+    check(not model._is_ready and model.item_cholesky_factor is chol
+          and not torch.equal(chol.L[:64, :64], before),
+          "features_weight 0.5 -> 0.8 refactorizes the factor in place and "
+          "renews the model")
+    t0 = wall()
+    out["hr10_weight_08"] = float(model.evaluate("relevance").hr)
+    out["rebuild_s"] = wall() - t0
+    check(model._is_ready and np.isfinite(out["hr10_weight_08"]),
+          f"the model rebuilt (HR@{TOPK} {out['hr10_weight_08']:.5f} at "
+          f"features_weight 0.8)")
+    trained_hybrid = model
+    del recs, proj, chol, before
+
+    # ---- ScaledHybridSVD on the same data, counted
+    fused_score_topk.launches = 0
+    scaled = hybrid_model(pm.ScaledHybridSVD, data, device)
+    out["scaled_hr10"] = float(scaled.evaluate("relevance").hr)
+    out["launches"]["scaled_hybrid"] = fused_score_topk.launches
+    sparams = scaled.score_params()
+    out["scaled_fused_gap"] = _fused_gap(
+        scaled._test_plan, pm.ScaledHybridSVD.proj_chunk(sparams, head),
+        sparams["item_panel"], scaled._device_recommendations(), n_items)
+    check(out["scaled_fused_gap"] < 1e-3, f"ScaledHybridSVD fused_ok: "
+          f"re-scored gap {out['scaled_fused_gap']:.2e} < 1e-3")
+    del scaled, sparams
+
+    # ---- SimilarityAggregation (dense profile @ S, unfused)
+    agg = pm.SimilarityAggregation(data, device=device)
+    agg.verbose = False
+    agg.build()
+    aparams = agg.score_params()
+    check(not agg.uses_fused_scoring(aparams),
+          "SIM takes the unfused path (no proj_chunk)")
+    t0 = wall()
+    agg_recs = agg._device_recommendations()
+    out["sim_scoring_s"] = wall() - t0
+    out["sim_hr10"] = float(agg.evaluate("relevance").hr)
+    n_check = min(VERIFY_USERS, plan.n_users)
+    block = pm.SimilarityAggregation.score_chunk(aparams, head)[:n_check]
+    sel = head.valid & (head.rows < n_check)
+    block[head.rows[sel], head.cols[sel]] = -torch.inf
+    plain = torch.sort(block, dim=1, descending=True,
+                       stable=True).indices[:, :TOPK]
+    check(torch.equal(agg_recs[:n_check].long(), plain),
+          f"SIM picks == a plain stable-sort top-{TOPK} of its score block "
+          f"(first {n_check} users)")
+    if on_card:
+        profiles = dense_profiles(plan, n_items)
+        s = aparams["similarity"]
+        out["sim_product_ms"] = time_ms(lambda: profiles @ s, 3)
+        out["sim_product_shape"] = [plan.n_users, n_items, n_items]
+        del profiles, s
+    del agg, aparams, block, agg_recs
+
+    # ---- S = I: HybridSVD is PureSVD rescaled on the same split
+    eye = torch.eye(n_items, device=device)
+    identity = side_data(frame, SimilarityDataModel, relations_matrices={
+        "movieid": eye, "userid": None},
+        relations_indices=relations["relations_indices"])
+    fused_score_topk.launches = 0
+    twin = hybrid_model(pm.HybridSVD, identity, device)
+    twin_hr = float(twin.evaluate("relevance").hr)
+    out["launches"]["hybrid_identity"] = fused_score_topk.launches
+    pure = hybrid_model(pm.SVDModel, identity, device)
+    out["puresvd_hr10"] = float(pure.evaluate("relevance").hr)
+    out["identity_overlap"] = _overlap(twin._device_recommendations(),
+                                       pure._device_recommendations())
+    out["identity_hr_delta"] = abs(twin_hr - out["puresvd_hr10"])
+    check(out["identity_overlap"] >= 0.99
+          and out["identity_hr_delta"] <= 1e-3,
+          f"S = I: HybridSVD-{HYBRID_RANK} vs PureSVD-{HYBRID_RANK} top-"
+          f"{TOPK} overlap {out['identity_overlap']:.5f} >= 0.99, |dHR@"
+          f"{TOPK}| {out['identity_hr_delta']:.2e} <= 1e-3 (PureSVD HR@"
+          f"{TOPK} {out['puresvd_hr10']:.5f})")
+    del twin, pure, identity, eye, data, plan, head, pop
+    gc.collect()
+
+    # ---- HybridSVD serving: the bundle from the model, counted
+    rs = np.random.RandomState(0)
+    requests = serving_requests(n_items, rs)
+    fused_score_topk.launches = 0
+    bundle = ServingBundle.from_model(trained_hybrid, topk=TOPK,
+                                      batch_size=SERVE_BATCH)
+    check(bundle.left_panel is not bundle.item_factors,
+          "the HybridSVD bundle serves two panels (right, left)")
+    bundle.warmup(event_widths=(128,), explicit_values=True)
+    for kind in ("ids_100", "dicts_100"):
+        got = bundle.recommend_events(requests[kind])
+        check(got.shape == (SERVE_BATCH, TOPK)
+              and ((got >= 0) & (got < n_items)).all(),
+              f"HybridSVD bundle {kind}: {SERVE_BATCH} x {TOPK} ids in "
+              f"range")
+    out["launches"]["hybrid_serving"] = fused_score_topk.launches
+    out["serving"], _ = serve_step_fields(bundle, requests["ids_100"])
+    gen = torch.Generator(device=device).manual_seed(0)
+    right, left_twin = (torch.randint(-2, 3, tuple(bundle.item_factors.shape),
+                                      generator=gen, device=device).float()
+                        for _ in range(2))
+    twin_bundle = ServingBundle(right, topk=TOPK, batch_size=SERVE_BATCH,
+                                left_panel=left_twin)
+    for kind in ("ids_100", "dicts_100"):
+        _, (tproj, tbits) = serve_step_fields(twin_bundle, requests[kind],
+                                              reps=1)
+        log(f"  hybrid bundle {kind}: kernel vs plain version (integer "
+            f"factors, left != right, ids identical)")
+        _compare(tproj, twin_bundle.left_panel.contiguous(), tbits, TOPK,
+                 exact=True)
+    del bundle, twin_bundle, trained_hybrid
+
+    # ---- KPMF and LCE at small_geometry, known users
+    small = events_frame(*make_realistic_coo_device(**small_geometry,
+                                                    seed=0, device=device))
+    genres = synthetic_genres(np.arange(small_geometry["n_items"]))
+    t0 = wall()
+    laplacian = genre_laplacian(genres, device)
+    out["laplacian_s"] = wall() - t0
+
+    class LaplacianData(SideRelationsMixin, RecommenderData):
+        pass
+
+    kdata = side_data(small, LaplacianData, warm_start=False,
+                      relations_matrices={"movieid": laplacian,
+                                          "userid": None},
+                      relations_indices={
+                          "movieid": genres.index.to_numpy(),
+                          "userid": None})
+    fused_score_topk.launches = 0
+    kpmf = pm.KernelizedPMF(kdata, device=device, seed=0)
+    kpmf.verbose = False
+    kpmf.num_epochs = 5
+    kpmf.tolerance = 0.0
+    t0 = wall()
+    kpmf.build()
+    out["kpmf_build_s"] = wall() - t0
+    out["kpmf_rmse"] = list(kpmf.rmse_history)
+    out["kpmf_hr10"] = float(kpmf.evaluate("relevance").hr)
+    out["launches"]["kpmf"] = fused_score_topk.launches
+    out["kpmf_fused_gap"] = _known_user_gap(kpmf)
+    check(out["kpmf_fused_gap"] < 1e-3, f"KPMF fused_ok: re-scored gap "
+          f"{out['kpmf_fused_gap']:.2e} < 1e-3")
+    rmse = np.asarray(out["kpmf_rmse"])
+    check(len(rmse) == 5 and np.isfinite(rmse).all()
+          and (np.diff(rmse) <= 0).all(),
+          f"KPMF RMSE finite and not rising over 5 epochs "
+          f"({', '.join(f'{x:.5f}' for x in rmse)})")
+    fused_score_topk.launches = 0
+    lce = pm.LCEModel(kdata, item_features=genres, device=device)
+    lce.verbose = False
+    lce.seed = 0
+    t0 = wall()
+    lce.build()
+    out["lce_build_s"] = wall() - t0
+    out["lce_hr10"] = float(lce.evaluate("relevance").hr)
+    out["launches"]["lce"] = fused_score_topk.launches
+    out["lce_fused_gap"] = _known_user_gap(lce)
+    check(out["lce_fused_gap"] < 1e-3, f"LCE fused_ok: re-scored gap "
+          f"{out['lce_fused_gap']:.2e} < 1e-3")
+    history = np.asarray(lce.objective_history)
+    out["lce_objective"] = [float(history[0]), float(history[-1]),
+                            len(history)]
+    # multiplicative updates never raise the objective in exact
+    # arithmetic; f32 sums may wobble by a few ulps of ~1e7
+    check((np.diff(history) <= 1e-6 * np.abs(history[:-1])).all(),
+          f"LCE objective does not rise over {len(history)} updates "
+          f"({history[0]:.6e} -> {history[-1]:.6e})")
+    kpop = pm.PopularityModel(kdata, device=device)
+    kpop.verbose = False
+    out["small_popularity_hr10"] = float(kpop.evaluate("relevance").hr)
+    log(f"  {small_geometry}: KPMF HR@{TOPK} {out['kpmf_hr10']:.5f} "
+        f"(build {out['kpmf_build_s']:.2f} s), LCE HR@{TOPK} "
+        f"{out['lce_hr10']:.5f} (build {out['lce_build_s']:.2f} s), "
+        f"popularity {out['small_popularity_hr10']:.5f}")
+    del kpmf, lce, kpop, kdata, small
+
+    # ---- the item cold-start scenario at geometry
+    genres = synthetic_genres(np.arange(n_items))
+    t0 = wall()
+    cdata = ItemColdStartSimilarityData(
+        frame, "userid", "movieid", "rating", item_features=genres,
+        seed=0, verbose=False, **relations)
+    cdata.prepare()
+    out["cold_prepare_s"] = wall() - t0
+    n_cold = cdata.index.itemid.cold_start.shape[0]
+    n_users = cdata.index.userid.training.shape[0]
+    out["cold_shape"] = [n_cold, n_users]
+    cold_models = [
+        ("MP(cs)", pm.PopularityModelItemColdStart, {}, {}),
+        ("RND(cs)", pm.RandomModelItemColdStart, {"seed": 0}, {}),
+        ("SIM(cs)", pm.SimilarityAggregationItemColdStart, {}, {}),
+        ("PureSVD(cs)", pm.SVDModelItemColdStart, {},
+         {"rank": COLD_SVD_RANK}),
+        ("PureSVD-s(cs)", pm.ScaledSVDItemColdStart, {},
+         {"rank": COLD_SVD_RANK}),
+        ("HybridSVD(cs)", pm.HybridSVDItemColdStart, {},
+         {"rank": HYBRID_RANK}),
+        ("LCE(cs)", pm.LCEModelItemColdStart, {"item_features": genres},
+         {"rank": COLD_LCE_RANK, "seed": 0}),
+    ]
+    out["cold"] = {}
+    for name, cls, kw, attrs in cold_models:
+        if "rank" in attrs and cls is not pm.LCEModelItemColdStart:
+            cm = hybrid_model(cls, cdata, device, rank=attrs["rank"], **kw)
+        else:
+            cm = cls(cdata, device=device, **kw)
+            cm.verbose = False
+            for key, value in attrs.items():
+                setattr(cm, key, value)
+        t0 = wall()
+        crecs = cm.recommendations
+        seconds = wall() - t0
+        metrics = _metric_fields(cm.evaluate(["relevance", "hits"]))
+        # hits per cold item (the simple rate of a many-event holdout)
+        metrics["hr"] = float(cm.evaluate("relevance", simple_rates=True).hr)
+        out["cold"][name] = {"s": seconds, **metrics}
+        check(crecs.shape == (n_cold, TOPK)
+              and ((crecs >= 0) & (crecs < n_users)).all()
+              and all(np.isfinite(x) for x in metrics.values()),
+              f"{name}: {n_cold} x {TOPK} user ids in range, finite "
+              f"metrics (precision {metrics['precision']:.5f}, "
+              f"{seconds:.2f} s)")
+        if name == "HybridSVD(cs)":
+            cscores = cm.compute_cold_scores(None)
+            plain = torch.sort(cscores, dim=1, descending=True,
+                               stable=True).indices[:, :TOPK]
+            check(np.array_equal(crecs, plain.cpu().numpy()),
+                  "HybridSVD(cs) picks == a plain stable-sort top-"
+                  f"{TOPK} of its score block")
+            del cscores, plain
+        del cm
+    for name in ("PureSVD(cs)", "HybridSVD(cs)"):
+        check(out["cold"][name]["true_positive"]
+              > out["cold"]["RND(cs)"]["true_positive"],
+              f"{name} hits {out['cold'][name]['true_positive']:.0f} > "
+              f"RND(cs)'s {out['cold']['RND(cs)']['true_positive']:.0f}")
+    log("  cold start: " + json.dumps({k: {f: round(x, 5) for f, x in
+                                           v.items()} for k, v in
+                                       out["cold"].items()}))
+    del cdata, frame, sim
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -2360,7 +2861,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-9) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-10) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
@@ -2481,6 +2982,21 @@ def main() -> int:
     log(f"  phase 9: {time.perf_counter() - t0:.2f} s")
     log("  " + json.dumps({"serving": serving}))
 
+    log("phase 10: HybridSVD rank 30 at ML-10M geometry through "
+        "SimilarityDataModel, ScaledHybridSVD, SIM; KPMF and LCE at ML-1M "
+        "geometry; item cold start at ML-10M geometry; HybridSVD serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    side = side_phase(ML10M_GEOMETRY, ML1M_GEOMETRY)
+    for name in ("hybrid", "scaled_hybrid", "hybrid_identity", "kpmf", "lce",
+                 "hybrid_serving"):
+        check(side["launches"][name] > 0,
+              f"{name} launched the kernel ({side['launches'][name]}x)")
+    log(f"  phase 10: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{side['peak_mem_gib']:.2f} GiB")
+    log("  " + json.dumps({"side": side}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -2494,7 +3010,8 @@ def main() -> int:
         shards[name] = fields
     shapes = {}
     for name, fields in (("tensor_scoring", tensor["kernel"]),
-                         ("serving_batch", serving["kernel"])):
+                         ("serving_batch", serving["kernel"]),
+                         ("hybrid_scoring", side["kernel"])):
         fields = dict(fields)
         fields["bound_ms"], fields["bound_by"] = bound_ms(
             fields.pop("flop"), fields.pop("bytes"))
@@ -2513,7 +3030,14 @@ def main() -> int:
                              "tensor": tensor["launches"]["tensor"],
                              "tensor_tuning": tensor["launches"]["tuning"],
                              "tensor_mesh": tensor["launches"]["tensor_mesh"],
-                             "serving": serving["launches"]["serving"]},
+                             "serving": serving["launches"]["serving"],
+                             "hybrid": sum(side["launches"][name] for name
+                                           in ("hybrid", "scaled_hybrid",
+                                               "hybrid_identity")),
+                             "hybrid_lce": (side["launches"]["lce"]
+                                            + side["launches"]["kpmf"]),
+                             "hybrid_serving":
+                                 side["launches"]["hybrid_serving"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,

@@ -1,9 +1,19 @@
 """Host data tier (pandas): the interaction-data model and its split
-state machine."""
+state machine, the side-relations data model and the item cold-start
+scenario."""
 from polara_tpu_torch.data.dataset import (RecommenderData, TestData, Fields,
                                            build_entity_index)
 from polara_tpu_torch.data.events import EventNotifier
 from polara_tpu_torch.data.scenario import Scenario, UpdateRule, plan_update
+from polara_tpu_torch.data.hybrid import (SideRelationsMixin,
+                                          IdentityDiagonalMixin,
+                                          SimilarityDataModel)
+from polara_tpu_torch.data.coldstart import (ItemColdStartData,
+                                             ColdSimilarityMixin,
+                                             ItemColdStartSimilarityData)
 
 __all__ = ["RecommenderData", "TestData", "Fields", "build_entity_index",
-           "EventNotifier", "Scenario", "UpdateRule", "plan_update"]
+           "EventNotifier", "Scenario", "UpdateRule", "plan_update",
+           "SideRelationsMixin", "IdentityDiagonalMixin",
+           "SimilarityDataModel", "ItemColdStartData", "ColdSimilarityMixin",
+           "ItemColdStartSimilarityData"]

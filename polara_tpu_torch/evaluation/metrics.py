@@ -127,10 +127,18 @@ def metrics_core(recs: torch.Tensor, items: torch.Tensor, fb: torch.Tensor,
     mrr = recip.max(1).values.mean()
 
     # --- MAP@k (evaluation.py:120-133) -------------------------------------
-    hits_leq = ((pos_rank[:, None, :] <= pos_rank[:, :, None])
-                & pos_hit[:, None, :] & pos_hit[:, :, None]).sum(-1).to(f)
-    prec_at = torch.where(pos_hit, hits_leq / pos_rank.clamp(min=1).to(f),
-                          0.0)
+    # the precision at each hit, summed over the k recommendation slots:
+    # every positive holdout entry ranked at slot j (m_j of them, more than
+    # one when a row's holdout repeats an item) counts the hit entries
+    # ranked at or above it, cumsum(m)_j, over j.  That is the JAX
+    # package's per-entry sum (recommendations are unique) without its
+    # (users, h, h) comparison, which asks O(users·h²) memory (terabytes
+    # for the item cold-start holdout, h ~ 3e4 events per cold item)
+    slot_hits = (match & pos_entry[:, :, None]).sum(1).to(f)     # (n, k)
+    hits_upto = torch.cumsum(slot_hits, dim=1)
+    slot_rank = torch.arange(1, recs.shape[1] + 1, dtype=f,
+                             device=recs.device)
+    prec_at = slot_hits * hits_upto / slot_rank
     n_rel_adj = torch.clamp(n_eval, max=float(topk))
     mean_ap = (prec_at.sum(1) / n_rel_adj.clamp(min=1.0)).mean()
 

@@ -78,6 +78,21 @@ class SVDModel(RecommenderModel):
             self.factors = dict(**self.factors)
             self.factors[entity] = factor[..., :rank]
 
+    @staticmethod
+    def _dense_budget_bytes(mesh=None) -> float:
+        """``hbm_score_budget_gb`` in bytes; the budget is per device, so
+        under a mesh the block shards over the distinct devices of its
+        users axis."""
+        budget = defaults.get_default("hbm_score_budget_gb") * 2 ** 30
+        return budget * shard_device_count(mesh) if mesh is not None \
+            else budget
+
+    def _fits_dense_budget(self, matrix: CooMatrix, mesh=None) -> bool:
+        """Whether the dense training block fits the memory budget."""
+        n_rows, n_cols = matrix.shape
+        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+        return n_rows * n_cols * itemsize <= self._dense_budget_bytes(mesh)
+
     def _dense_operands(self, matrix: CooMatrix, mesh=None):
         """The dense block (and its power operator) for this model's
         scaling, cached on the data object.
@@ -123,20 +138,15 @@ class SVDModel(RecommenderModel):
             svd_matrix = operator
         else:
             matrix = self.get_training_matrix()
-            # the budget is per device: under a mesh the block shards over
-            # the distinct devices of its users axis
-            budget = defaults.get_default("hbm_score_budget_gb") * 2 ** 30
-            if mesh is not None:
-                budget *= shard_device_count(mesh)
-            n_rows, n_cols = matrix.shape
             itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
             block = self.rank + (self.svd_oversample
                                  if self.svd_oversample is not None
                                  else max(10, self.rank))
-            if n_rows * n_cols * itemsize <= budget:
+            if self._fits_dense_budget(matrix, mesh):
                 dense, power_op = self._dense_operands(matrix, mesh)
                 svd_matrix = dense_operator(dense)
-            elif mesh is not None and matrix.nnz * block * itemsize > budget:
+            elif mesh is not None and matrix.nnz * block * itemsize \
+                    > self._dense_budget_bytes(mesh):
                 raise NotImplementedError(
                     "SVDModel under a mesh beyond the memory budget needs "
                     "the event-sharded streaming rSVD "

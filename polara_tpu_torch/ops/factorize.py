@@ -246,13 +246,18 @@ def mf_train(rows: ArrayLike, cols: ArrayLike, vals: ArrayLike,
              verbose: bool = False,
              iter_errors: Optional[List[float]] = None,
              iter_time: Optional[List[float]] = None,
-             device=None) -> MFResult:
+             device=None,
+             init: Optional[Tuple[ArrayLike, ArrayLike]] = None
+             ) -> MFResult:
     """Train P, Q such that ``vals ~= sum(P[rows] * Q[cols])``.
 
     ``rows``/``cols``/``vals`` are numpy arrays or tensors; the training
     runs on ``device`` (default: the inputs' device for tensors, else the
     card).  The stream pads to whole batches as ``np.resize`` does,
-    repeating it from its start, and the repeated entries weigh 0."""
+    repeating it from its start, and the repeated entries weigh 0.
+    ``init``: an optional start ``(P, Q)``; without it, ``0.1 N(0, 1)``
+    draws from a ``torch.Generator`` seeded by ``seed`` (the epochs'
+    permutations come from that generator either way)."""
     device = _input_device(device, rows, "mf_train")
     n_rows, n_cols = (int(s) for s in shape)
     nnz = len(vals)
@@ -279,10 +284,13 @@ def mf_train(rows: ArrayLike, cols: ArrayLike, vals: ArrayLike,
 
     opt = _make_optimizer(optimizer, lrate)
     gen = generator_from_seed(seed, device)
-    p = 0.1 * torch.randn((n_rows, rank), generator=gen, dtype=dtype,
-                          device=device)
-    q = 0.1 * torch.randn((n_cols, rank), generator=gen, dtype=dtype,
-                          device=device)
+    if init is None:
+        p = 0.1 * torch.randn((n_rows, rank), generator=gen, dtype=dtype,
+                              device=device)
+        q = 0.1 * torch.randn((n_cols, rank), generator=gen, dtype=dtype,
+                              device=device)
+    else:
+        p, q = (_on_device(x, device, dtype) for x in init)
     state = MFState(p=p, q=q, opt_state=opt.init((p, q)))
 
     def run_epoch(state: MFState) -> Tuple[MFState, torch.Tensor]:

@@ -172,9 +172,11 @@ def fill_short_rows(recs: np.ndarray,
 
 
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A contiguous tensor (the kernel reads row-major panels; a model's
+    factors may be views, e.g. HybridSVD's solved left projector)."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.array(x))
-    return x.to(device=device, dtype=dtype)
+    return x.to(device=device, dtype=dtype).contiguous()
 
 
 class ServingBundle:

@@ -17,24 +17,15 @@ UNPORTED = {
         "get_amazon_data",
     },
     "polara_tpu.data": {
-        "SampledEvaluationMixin", "LongTailMixin", "SideRelationsMixin",
-        "IdentityDiagonalMixin", "SimilarityDataModel", "ItemColdStartData",
-        "ColdSimilarityMixin", "ItemColdStartSimilarityData",
-        "ItemPostFilteringData",
+        "SampledEvaluationMixin", "LongTailMixin", "ItemPostFilteringData",
     },
     "polara_tpu.datasets": {
         "get_amazon_data", "get_bookcrossing_data", "get_epinions_data",
-        "compute_graph_laplacian", "get_movielens_data", "get_split_genres",
-        "filter_short_head", "get_netflix_data", "get_yahoo_music_data",
+        "get_movielens_data", "filter_short_head", "get_netflix_data",
+        "get_yahoo_music_data",
         "make_realistic_coo", "make_realistic_interactions",
     },
     "polara_tpu.models": {
-        "SimilarityAggregation",
-        "KernelizedPMF", "LCEModel", "HybridSVD", "ScaledHybridSVD",
-        "RandomModelItemColdStart", "PopularityModelItemColdStart",
-        "SimilarityAggregationItemColdStart", "SVDModelItemColdStart",
-        "HybridSVDItemColdStart", "ScaledSVDItemColdStart",
-        "ScaledHybridSVDItemColdStart", "LCEModelItemColdStart",
         "ItemPostFilteringMixin",
     },
     "polara_tpu.ops": {
@@ -44,7 +35,7 @@ UNPORTED = {
         "distributed_chunked_rsvd", "distributed_ials_events",
     },
     "polara_tpu.preprocessing": {
-        "dataframes", "features", "matrices",
+        "dataframes", "matrices",
     },
     "polara_tpu.recommender": {
         "data", "models", "evaluation",

@@ -366,3 +366,104 @@ def test_coffee_builds_are_bit_identical_on_the_card():
     finally:
         config.set_default("hbm_score_budget_gb", saved)
     assert abs(hr["dense"] - hr["events"]) <= 0.02, hr
+
+
+def config_default(name, value):
+    """Set a port default; returns the previous value."""
+    from polara_tpu_torch import config
+    saved = config.get_default(name)
+    config.set_default(name, value)
+    return saved
+
+
+def _similarity_data(n_users=600, n_items=300, n_events=20_000):
+    """Seeded events with a seeded PSD item similarity (unit diagonal) in
+    ``SimilarityDataModel``, known users, one held-out item each."""
+    from polara_tpu_torch.data import SimilarityDataModel
+    from polara_tpu_torch.datasets.synthetic import \
+        make_synthetic_interactions
+    events = make_synthetic_interactions(n_users=n_users, n_items=n_items,
+                                         n_events=n_events, seed=0)
+    ids = np.sort(events["movieid"].unique())
+    base = np.random.RandomState(1).randn(len(ids), 8)
+    sim = base @ base.T
+    sim = 0.5 * sim / np.sqrt(np.outer(np.diag(sim), np.diag(sim)))
+    data = SimilarityDataModel(
+        events, "userid", "movieid", "rating",
+        relations_matrices={"movieid": torch.as_tensor(sim).float()},
+        relations_indices={"movieid": ids}, seed=0, verbose=False)
+    data.warm_start = False
+    data.holdout_size = 1
+    data.prepare()
+    return data
+
+
+@pytest.mark.cuda
+def test_hybrid_svd_kernel_matches_its_plain_version():
+    """HybridSVD built on the card scores through the kernel (counted)
+    over its left projector; the same factors made dyadic give the plain
+    version's ids on the CPU, ties included; two ``proj_chunk`` calls
+    give identical bits."""
+    from polara_tpu_torch.models import HybridSVD
+    device = _cuda()
+    data = _similarity_data()
+    model = HybridSVD(data, device=device)
+    model.verbose = False
+    model.rank = 20
+    model.build()
+    rs = np.random.RandomState(2)
+    factors = {k: None if v is None else torch.as_tensor(
+        np.clip(np.round(rs.randn(*v.shape) * 4) / 4, -2, 2),
+        dtype=torch.float32) for k, v in model.factors.items()}
+    model.set_factors(factors)
+    before = tf.fused_score_topk.launches
+    got = model.recommendations
+    assert tf.fused_score_topk.launches > before
+    plain = HybridSVD(data, device="cpu")
+    plain.verbose = False
+    plain.rank = 20
+    plain.set_factors(factors)
+    saved = config_default("fused_scoring", True)
+    try:
+        want = plain.recommendations
+    finally:
+        config_default("fused_scoring", saved)
+    np.testing.assert_array_equal(got, want)
+    chunk = model._test_plan.chunks[0]
+    params = model.score_params()
+    assert torch.equal(HybridSVD.proj_chunk(params, chunk),
+                       HybridSVD.proj_chunk(params, chunk))
+
+
+@pytest.mark.cuda
+def test_cold_start_topk_on_the_card_is_the_stable_sort():
+    """HybridSVD(cs) on the card: its picks equal a stable descending sort
+    of its own score block on the host (ties to the lowest user)."""
+    import pandas as pd
+    from polara_tpu_torch.data import ItemColdStartSimilarityData
+    from polara_tpu_torch.datasets.synthetic import \
+        make_synthetic_interactions
+    from polara_tpu_torch.models import HybridSVDItemColdStart
+    device = _cuda()
+    events = make_synthetic_interactions(n_users=600, n_items=300,
+                                         n_events=20_000, seed=0)
+    ids = np.sort(events["movieid"].unique())
+    rs = np.random.RandomState(3)
+    features = pd.DataFrame({"genres": [rs.choice(8, rs.randint(1, 4),
+                                                  replace=False).tolist()
+                                        for _ in ids]}, index=ids)
+    base = rs.randn(len(ids), 8)
+    sim = base @ base.T
+    sim = 0.5 * sim / np.sqrt(np.outer(np.diag(sim), np.diag(sim)))
+    data = ItemColdStartSimilarityData(
+        events, "userid", "movieid", "rating", item_features=features,
+        relations_matrices={"movieid": torch.as_tensor(sim, device=device)},
+        relations_indices={"movieid": ids}, seed=0, verbose=False)
+    data.prepare()
+    model = HybridSVDItemColdStart(data, device=device)
+    model.verbose = False
+    model.rank = 10
+    recs = model.recommendations
+    scores = model.compute_cold_scores(None).cpu().numpy()
+    want = np.argsort(-scores, axis=1, kind="stable")[:, :model.topk]
+    np.testing.assert_array_equal(recs, want)

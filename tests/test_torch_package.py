@@ -13,11 +13,15 @@ IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
            "polara_tpu_torch.models.baselines, polara_tpu_torch.native, "
            "polara_tpu_torch.ops.similarity, polara_tpu_torch.runtime, "
            "polara_tpu_torch.runtime.mesh, polara_tpu_torch.parallel, "
-           "polara_tpu_torch.evaluation.plotting")
-# the pandas tier: the data model and the experiment pipelines
+           "polara_tpu_torch.evaluation.plotting, "
+           "polara_tpu_torch.ops.cholesky, polara_tpu_torch.models.hybrid, "
+           "polara_tpu_torch.models.coldstart")
+# the pandas tier: the data model, the experiment pipelines and the
+# feature encoders
 PANDAS_TIER = ("import polara_tpu_torch.data, "
                "polara_tpu_torch.evaluation.engine, "
-               "polara_tpu_torch.evaluation.pipelines")
+               "polara_tpu_torch.evaluation.pipelines, "
+               "polara_tpu_torch.preprocessing")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
