@@ -130,7 +130,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the projector products, builds, warm scoring, ``profile @ S``, each
    cold-start model, the serving call, peak memory.
 
-pandas is required (phases 4-10): without it the script exits non-zero
+11. The beyond-memory streaming tier at Netflix geometry (480,189 x
+   17,770, ~100M events; the dense f32 block would be 31.8 GiB, past the
+   memory budget): seeded data on the card, one held-out event per user
+   (``holdout_split``'s draws), training seen bits packed on the card in
+   popularity order; three operators staged from the training events and
+   timed: ``split_coo_operator`` at the JAX package's 2 GiB head budget
+   and at the port's (a quarter of the free memory), and
+   ``tiled_coo_operator``; PureSVD rank 50 through each by
+   ``randomized_svd_krylov`` at depth 3 (``benchmarks/netflix_scale.py``),
+   ``proj = u · diag(s)``, all users scored through the kernel in one
+   launch, ids mapped back from popularity order.  Then
+   ``distributed_chunked_rsvd`` (split head) on a (4, 1) mesh against the
+   single-device build of the same solver, ``ImplicitALS(mesh=(4, 1))``
+   at ML-10M geometry past a lowered budget (``distributed_ials_events``)
+   against the single-device event tier, exact f64 factors from the Gram
+   accumulated over dense f64 row blocks, and, with the operators freed,
+   the dense route's Krylov build on the 34.1 GB block (timing only).
+   Gates: each build launched the kernel, ids in range, ``fused_ok``, the
+   triplet residual through the operator, metric delta (< 1e-3) and
+   top-10 overlap (>= 0.98) against the exact factors, split vs tiled
+   (overlap >= 0.99, singular values within 5e-3), two ``mm`` and two
+   ``rmm`` calls of each operator and two split builds bit-identical, the
+   mesh SVD (overlap >= 0.99, |dHR@10| <= 1e-3), the mesh iALS (item
+   factors within 1e-4, |dHR@10| <= 2e-3), HR@10 above popularity's.
+   Times: generation, seen-bit packing, staging, builds, warm scoring,
+   one ``mm`` + ``rmm`` at width 100 per operator, the kernel at this
+   shape with its bound, cuBLAS scores and ``torch.topk`` route at the
+   scoring plan's chunk, the exact reference, the dense route, peak memory.
+
+pandas is required (phases 4-11): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -140,11 +169,12 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-10;
+and then the score kernel, and ``launches_by_path`` those of phases 3-11;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
 ``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
 shape, ``serving_batch`` at one serving batch, ``hybrid_scoring`` at
-HybridSVD's, and ``mesh_merge_ms``), and as
+HybridSVD's, ``netflix_scoring`` at phase 11's 480,189 users, and
+``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
@@ -2808,6 +2838,486 @@ def side_phase(geometry, small_geometry, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: the beyond-memory streaming tier at Netflix geometry
+# --------------------------------------------------------------------------
+
+KRYLOV_DEPTH = 3             # benchmarks/netflix_scale.py:64
+JAX_HEAD_GB = 2.0            # the JAX package's streaming_head_gb
+STREAM_EVENT_CHUNK = 4_000_000
+MESH_ITERS = 4               # distributed_chunked_rsvd's power iterations
+GRAM_BLOCK_ROWS = 8192       # dense f64 row blocks of the exact Gram
+STREAM_IALS_BUDGET_GB = 2.0  # below ML-10M's 2.78 GiB dense block
+
+
+def holdout_split_device(rows, n_users: int, seed: int = 7):
+    """:func:`holdout_split` on the card, for row-sorted event tensors in
+    which every user has an event: the same ``RandomState`` draws, so the
+    same picks.  Returns (picked event positions, held-out mask)."""
+    import torch
+    counts = torch.bincount(rows, minlength=n_users)
+    check(bool((counts > 0).all()), "every user has an event")
+    start = torch.cumsum(counts, 0) - counts
+    draw = torch.as_tensor(np.random.RandomState(seed).rand(n_users),
+                           device=rows.device)
+    pick = start + (draw * counts).long()
+    hold = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    hold[pick] = True
+    return pick, hold
+
+
+def profile_ms(fn, top=8):
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (host
+    clock, synchronized), the card's busy ms (the kernels' self device
+    time, one stream), the idle share, and the ``top`` kernels by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = wall()
+        fn()
+        wall_ms = (wall() - t0) * 1e3
+    kernels = []
+    for event in prof.key_averages():
+        # device activity only: the aten ops would count their kernels
+        # twice, and the runtime's stall marker is no device work
+        if (getattr(event, "device_type", None) != DeviceType.CUDA
+                or event.key == "Command Buffer Full"):
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append((event.key[:80], us / 1e3))
+    kernels.sort(key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "top": kernels[:top]}
+
+
+def exact_item_factors(rows, cols, vals, n_users, n_items, rank,
+                       block=GRAM_BLOCK_ROWS):
+    """Exact f64 top-``rank`` item factors and singular values from the
+    eigendecomposition of ``AᵀA``, accumulated over dense f64 row blocks
+    of ``block`` users built on the card from the (row-sorted) events: no
+    whole dense block is ever made."""
+    import torch
+    gram = torch.zeros((n_items, n_items), dtype=torch.float64,
+                       device=rows.device)
+    starts = list(range(0, n_users, block)) + [n_users]
+    bounds = torch.searchsorted(
+        rows, torch.as_tensor(starts, device=rows.device)).tolist()
+    for b, lo_row in enumerate(starts[:-1]):
+        lo, hi = bounds[b], bounds[b + 1]
+        blk = torch.zeros((starts[b + 1] - lo_row, n_items),
+                          dtype=torch.float64, device=rows.device)
+        blk.index_put_((rows[lo:hi] - lo_row, cols[lo:hi]),
+                       vals[lo:hi].double(), accumulate=True)
+        gram.addmm_(blk.T, blk)
+    del blk
+    evals, evecs = torch.linalg.eigh(gram)
+    del gram
+    return (evecs[:, -rank:].flip(1).contiguous(),
+            evals[-rank:].flip(0).clamp(min=0).sqrt())
+
+
+def streaming_phase(geometry, ials_geometry, device="cuda",
+                    ials_budget_gb=STREAM_IALS_BUDGET_GB):
+    """Phase 11: PureSVD rank 50 at Netflix geometry through the streaming
+    operators (split head at the JAX package's 2 GiB and at the port's
+    budget, tiled), every user scored through the kernel; the mesh tiers
+    (``distributed_chunked_rsvd``, ``ImplicitALS`` past the budget); the
+    exact f64 reference; the dense route's build time.  ``ials_budget_gb``
+    is the memory budget under which iALS at ``ials_geometry`` must take
+    the event tier.  Returns the measured fields; raises on a failed gate
+    except the launch counts (``launches``), which the caller checks."""
+    import torch
+    from polara_tpu_torch import config
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.models import ImplicitALS
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 fused_score_topk_reference,
+                                                 pack_seen_bits, seen_mask)
+    from polara_tpu_torch.ops.rsvd import (randomized_svd,
+                                           randomized_svd_krylov)
+    from polara_tpu_torch.ops.sparse import (dense_operator,
+                                             resolve_head_budget,
+                                             split_coo_operator,
+                                             tiled_coo_operator)
+    from polara_tpu_torch.parallel import distributed as dist_module
+    from polara_tpu_torch.runtime.memory import plan_user_chunks
+    from polara_tpu_torch.runtime.mesh import make_mesh
+
+    t_phase = wall()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    n_users, n_items = geometry["n_users"], geometry["n_items"]
+    shape = (n_users, n_items)
+    out = {"staging_s": {}, "build_s": {}, "build_warm_s": {},
+           "heads": {}, "metrics": {}, "launches": {}, "round_trip_ms": {}}
+
+    # ---- data: one held-out event per user, training seen bits on the card
+    with Timer() as t:
+        rows, cols, vals = make_realistic_coo_device(**geometry, seed=0,
+                                                     device=device)
+    out["data_gen_s"] = t.seconds
+    out["n_events"] = int(rows.shape[0])
+    pick, hold = holdout_split_device(rows, n_users)
+    hold_items = cols[pick]
+    keep = ~hold
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    del pick, hold, keep
+    out["train_events"] = int(rows.shape[0])
+    log(f"  {out['n_events']} events, {n_users} x {n_items} "
+        f"({out['data_gen_s']:.1f} s); {out['train_events']} training")
+    counts = torch.bincount(cols, minlength=n_items)
+    perm = torch.sort(counts, descending=True, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n_items, device=perm.device)
+    with Timer() as t:
+        bits = pack_seen_bits(rows, inv[cols], n_users, n_items)
+    out["seen_bits_ms"] = t.seconds * 1e3
+    out["seen_bits_gib"] = bits.numel() * 4 / 2 ** 30
+
+    def score_all(u, s, v):
+        """Every user's top-10 through the kernel over the popularity-
+        ordered panel, ``proj = u · diag(s)`` (= A v: the Rayleigh-Ritz
+        identity), ids mapped back."""
+        proj = (u * s[None, :]).contiguous()
+        panel = v.index_select(0, perm).contiguous()
+        pos = fused_score_topk(proj, panel, bits, TOPK,
+                               n_valid_cols=n_items, tile_skip=True)
+        check(bool((pos >= 0).all()), "no PAD slot (every user has "
+              f"{TOPK} unseen items)")
+        return perm[pos.long()], proj, panel
+
+    def metrics(name, recs):
+        hr, ndcg = _hit_metrics(recs, hold_items)
+        out["metrics"][name] = {"hr": hr, "ndcg": ndcg}
+        log(f"  {name}: HR@{TOPK} {hr:.5f} NDCG@{TOPK} {ndcg:.5f}")
+
+    # ---- operators, each staging timed
+    budgets = {"split_jax": JAX_HEAD_GB,
+               "split_port": resolve_head_budget(
+                   config.get_default("streaming_head_gb"), device)}
+    ops = {}
+    for name in ("split_jax", "split_port", "tiled"):
+        if on_card:
+            torch.cuda.empty_cache()
+        with Timer() as t:
+            if name == "tiled":
+                ops[name] = tiled_coo_operator(
+                    rows, cols, vals, shape, event_chunk=STREAM_EVENT_CHUNK,
+                    assume_sorted=True)
+            else:
+                ops[name] = split_coo_operator(
+                    rows, cols, vals, shape, head_budget_gb=budgets[name],
+                    event_chunk=STREAM_EVENT_CHUNK, assume_sorted=True)
+        out["staging_s"][name] = t.seconds
+        if name != "tiled":
+            (d, head_ids), row_side, _ = ops[name].operands
+            check(ops[name].mm_fn.__name__ == "_split_mm",
+                  f"{name}: the split head was taken")
+            in_head = counts[head_ids].sum().item()
+            covered = in_head / out["train_events"]
+            out["heads"][name] = {
+                "budget_gib": budgets[name], "p": int(d.shape[2]),
+                "coverage": covered, "dtype": str(d.dtype),
+                "head_gib": d.numel() * d.element_size() / 2 ** 30,
+                "tail_events": out["train_events"] - in_head,
+                "tail_row_slots": 0 if row_side is None else
+                row_side.minor.shape[0]}
+            log(f"  {name}: P {d.shape[2]}, coverage {covered:.4f}, "
+                f"{d.dtype} head {out['heads'][name]['head_gib']:.2f} GiB "
+                f"(budget {budgets[name]:.2f} GiB); staged in "
+                f"{t.seconds:.2f} s")
+        else:
+            log(f"  tiled: staged in {t.seconds:.2f} s")
+
+    # ---- the main path: a depth-3 Krylov build through each operator,
+    # every user scored through the kernel (counted)
+    def build(op):
+        return randomized_svd_krylov(op, RANK, depth=KRYLOV_DEPTH, seed=0)
+
+    results, recs = {}, {}
+    fused_score_topk.launches = 0
+    for name, op in ops.items():
+        before = fused_score_topk.launches
+        with Timer() as t:
+            results[name] = build(op)
+        out["build_s"][name] = t.seconds
+        recs[name], proj, panel = score_all(*results[name])
+        out["launches"][name] = fused_score_topk.launches - before
+        metrics(name, recs[name])
+    out["launches"]["main"] = fused_score_topk.launches
+
+    # ---- checks per build
+    for name, op in ops.items():
+        u, s, v = results[name]
+        check(bool(((recs[name] >= 0) & (recs[name] < n_items)).all()),
+              f"{name}: every id in [0, {n_items})")
+        av = op.mm(v) - u * s[None, :]
+        atu = op.rmm(u) - v * s[None, :]
+        out.setdefault("triplet_residual", {})[name] = (
+            torch.linalg.norm(av, dim=0) / s[0]).max().item()
+        out.setdefault("transpose_residual", {})[name] = (
+            torch.linalg.norm(atu, dim=0) / s[0]).max().item()
+        # Krylov's Rayleigh-Ritz makes Av = su up to rounding; the
+        # transpose side measures how far the build converged
+        check(max(out["triplet_residual"][name],
+                  out["transpose_residual"][name]) < 1e-2,
+              f"{name}: triplet residuals |Av - su|/s1 "
+              f"{out['triplet_residual'][name]:.3e} and |A'u - sv|/s1 "
+              f"{out['transpose_residual'][name]:.3e} < 1e-2")
+        del av, atu
+    for name in ("split_jax", "split_port"):
+        with Timer() as t:
+            again = build(ops[name])
+        out["build_warm_s"][name] = t.seconds
+        check(all(torch.equal(a, b) for a, b in zip(again, results[name])),
+              f"{name}: two builds give bit-identical factors")
+    with Timer() as t:
+        score_all(*results["split_port"])
+    out["score_warm_s"] = t.seconds
+    if on_card:
+        out["build_profile"] = {name: profile_ms(lambda: build(op))
+                                for name, op in ops.items()}
+        log(f"  builds under the profiler: "
+            f"{json.dumps(out['build_profile'])}")
+    out["split_vs_tiled_overlap"] = _overlap(recs["split_port"],
+                                             recs["tiled"])
+    out["split_vs_tiled_sv_gap"] = ((results["split_port"].s
+                                     - results["tiled"].s).abs()
+                                    / results["tiled"].s).max().item()
+    check(out["split_vs_tiled_overlap"] >= 0.99,
+          f"split vs tiled: top-{TOPK} overlap "
+          f"{out['split_vs_tiled_overlap']:.5f} >= 0.99")
+    check(out["split_vs_tiled_sv_gap"] <= 5e-3,
+          f"split vs tiled: relative singular-value gap "
+          f"{out['split_vs_tiled_sv_gap']:.2e} <= 5e-3")
+
+    # fused_ok and the kernel against its plain version on the first users
+    proj_head = proj[:VERIFY_USERS].contiguous()
+    bits_head = bits[:VERIFY_USERS].contiguous()
+    plain = fused_score_topk_reference(proj_head, panel, bits_head, TOPK,
+                                       n_valid_cols=n_items)
+    kern = fused_score_topk(proj_head, panel, bits_head, TOPK,
+                            n_valid_cols=n_items)
+    s64 = proj_head.double() @ panel.double().T
+    s_plain, s_kern = s64.gather(1, plain.long()), s64.gather(1, kern.long())
+    out["fused_max_gap"] = ((s_plain - s_kern).abs().max().item()
+                            / max(s_plain.abs().max().item(), 1e-6))
+    check(out["fused_max_gap"] < 1e-3,
+          f"fused_ok on the first {VERIFY_USERS} users: re-scored gap "
+          f"{out['fused_max_gap']:.2e} < 1e-3")
+    _, out["max_abs_err"] = _compare(proj_head, panel, bits_head, TOPK,
+                                     n_valid=n_items)
+
+    # popularity on the same split: the training counts as a rank-1 model
+    before = fused_score_topk.launches
+    pop, _, _ = score_all(torch.ones((n_users, 1), device=rows.device),
+                          torch.ones(1, device=rows.device),
+                          counts.float()[:, None])
+    out["launches"]["popularity"] = fused_score_topk.launches - before
+    metrics("popularity", pop)
+    for name in ops:
+        check(out["metrics"][name]["hr"] > out["metrics"]["popularity"]["hr"],
+              f"{name}: HR@{TOPK} {out['metrics'][name]['hr']:.5f} > "
+              f"popularity's {out['metrics']['popularity']['hr']:.5f}")
+
+    # ---- mm and rmm at width 100: bit-identical, one round trip timed
+    gen = torch.Generator(device=rows.device).manual_seed(0)
+    wide = torch.randn((n_items, 100), generator=gen, device=rows.device)
+    tall = torch.randn((n_users, 100), generator=gen, device=rows.device)
+    for name, op in ops.items():
+        check(torch.equal(op.mm(wide), op.mm(wide))
+              and torch.equal(op.rmm(tall), op.rmm(tall)),
+              f"{name}: two mm and two rmm calls give bit-identical "
+              f"products")
+        out["round_trip_ms"][name] = (time_ms(
+            lambda: (op.mm(wide), op.rmm(tall)), 3) if on_card else None)
+    log(f"  mm + rmm at width 100 (ms): {json.dumps(out['round_trip_ms'])}")
+    if on_card:
+        # the passes' row gather at one chunk (4M events x width 100): the
+        # advanced-indexing kernel against index_select, which the passes
+        # run
+        idx = cols[:STREAM_EVENT_CHUNK]
+        out["gather_ms"] = {
+            "index": time_ms(lambda: wide[idx], 5),
+            "index_select": time_ms(lambda: wide.index_select(0, idx), 5)}
+        log(f"  row gather at one chunk (ms): {json.dumps(out['gather_ms'])}")
+    del wide, tall
+
+    # ---- the kernel at this shape, with its baselines
+    chunk = plan_user_chunks(n_users, n_items)[0][1]
+    out["kernel"] = {
+        "users": n_users, "items": n_items, "rank": RANK,
+        "launches": out["launches"]["main"],
+        "ms": time_ms(lambda: fused_score_topk(
+            proj, panel, bits, TOPK, n_valid_cols=n_items), 10)
+        if on_card else None,
+        "plain_ms": time_ms(lambda: fused_score_topk_reference(
+            proj_head, panel, bits_head, TOPK, n_valid_cols=n_items), 3)
+        if on_card else None,
+        "plain_users": VERIFY_USERS, "chunk_users": chunk,
+        "max_abs_err": out["max_abs_err"],
+        "flop": 2 * n_users * n_items * RANK,
+        "bytes": 4 * (proj.numel() + n_items * RANK + bits.numel()
+                      + 2 * n_users * TOPK)}
+    proj_c, bits_c = proj[:chunk], bits[:chunk]
+
+    def topk_route():
+        scores = proj_c @ panel.T
+        scores.masked_fill_(seen_mask(bits_c, n_items), -torch.inf)
+        return torch.topk(scores, TOPK, dim=1)
+
+    if on_card:
+        out["kernel"]["library_ms"] = time_ms(lambda: proj_c @ panel.T, 5)
+        out["kernel"]["topk_ms"] = time_ms(topk_route, 3)
+    log(f"  kernel at {n_users} x {n_items} x {RANK}: "
+        f"{json.dumps(out['kernel'])}")
+
+    # ---- exact f64 factors (Gram over dense row blocks), scored through
+    # the port-budget operator so only the factors differ
+    with Timer() as t:
+        v_exact, s_exact = exact_item_factors(rows, cols, vals, n_users,
+                                              n_items, RANK)
+    out["exact_factor_s"] = t.seconds
+    v_ex = v_exact.float().contiguous()
+    proj_ex = ops["split_port"].mm(v_ex)
+    before = fused_score_topk.launches
+    recs_ex = perm[fused_score_topk(proj_ex, v_ex.index_select(0, perm),
+                                    bits, TOPK, n_valid_cols=n_items
+                                    ).long()]
+    out["launches"]["exact"] = fused_score_topk.launches - before
+    metrics("exact", recs_ex)
+    del proj_ex
+    ex = out["metrics"]["exact"]
+    for name in ops:
+        got = out["metrics"][name]
+        delta = max(abs(got["hr"] - ex["hr"]), abs(got["ndcg"] - ex["ndcg"]))
+        overlap = _overlap(recs[name], recs_ex)
+        out.setdefault("metric_delta_vs_exact", {})[name] = delta
+        out.setdefault("top10_overlap", {})[name] = overlap
+        out.setdefault("sv_max_rel_err", {})[name] = (
+            (results[name].s.double() - s_exact).abs() / s_exact).max().item()
+        check(delta < 1e-3, f"{name}: metric delta vs exact f64 factors "
+              f"{delta:.2e} < 1e-3")
+        check(overlap >= 0.98, f"{name}: top-{TOPK} overlap vs exact "
+              f"{overlap:.5f} >= 0.98")
+    del v_exact, v_ex, recs_ex
+
+    # ---- the mesh tier: distributed_chunked_rsvd on (4, 1), one card,
+    # against the single-device build of the same solver over the 2 GiB
+    # split operator (same start, same steps)
+    single_split = ops["split_jax"]
+    for name in ("split_port", "tiled"):
+        del ops[name]
+    del results, recs, proj, panel
+    if on_card:
+        torch.cuda.empty_cache()
+    mesh41 = make_mesh(devices=mesh_devices(4, device), shape=(4, 1))
+    fused_score_topk.launches = 0
+    with Timer() as t:
+        meshed = dist_module.distributed_chunked_rsvd(
+            rows, cols, vals, shape, RANK, mesh41, n_iter=MESH_ITERS, seed=0,
+            split_head=True, head_budget_gb=JAX_HEAD_GB)
+    out["mesh_build_s"] = t.seconds
+    with Timer() as t:
+        single = randomized_svd(single_split, RANK, n_iter=MESH_ITERS,
+                                tol=None, seed=0, qr_method="cholesky2")
+    out["mesh_single_build_s"] = t.seconds
+    recs_mesh = score_all(*meshed)[0]
+    recs_single = score_all(*single)[0]
+    out["launches"]["mesh"] = fused_score_topk.launches
+    metrics("mesh", recs_mesh)
+    metrics("mesh_single", recs_single)
+    out["mesh_overlap"] = _overlap(recs_mesh, recs_single)
+    out["mesh_hr_delta"] = abs(out["metrics"]["mesh"]["hr"]
+                               - out["metrics"]["mesh_single"]["hr"])
+    check(out["mesh_overlap"] >= 0.99 and out["mesh_hr_delta"] <= 1e-3,
+          f"distributed_chunked_rsvd (4, 1) vs the single-device split "
+          f"build: top-{TOPK} overlap {out['mesh_overlap']:.5f} >= 0.99, "
+          f"|dHR@{TOPK}| {out['mesh_hr_delta']:.2e} <= 1e-3")
+    del single_split, ops, meshed, single, recs_mesh, recs_single
+
+    # ---- ImplicitALS past the budget: (4, 1) mesh vs one device
+    frame = events_frame(*make_realistic_coo_device(**ials_geometry, seed=0,
+                                                    device=device))
+    data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.warm_start = False
+    data.holdout_size = 1
+    data.prepare()
+    del frame
+    calls = []
+    banded = dist_module.distributed_ials_events
+    saved = config.get_default("hbm_score_budget_gb")
+    config.set_default("hbm_score_budget_gb", ials_budget_gb)
+    dist_module.distributed_ials_events = (
+        lambda *a, **k: calls.append(1) or banded(*a, **k))
+    ials = {}
+    try:
+        for name, mesh in (("ials_mesh", mesh41), ("ials_single", None)):
+            model = ImplicitALS(data, device=device, mesh=mesh)
+            model.verbose = False
+            model.rank = RANK
+            with Timer() as t:
+                model.build()
+            out["build_s"][name] = t.seconds
+            before = fused_score_topk.launches
+            table = model.evaluate()
+            out["launches"][name] = fused_score_topk.launches - before
+            out["metrics"][name] = {f: float(getattr(m, f)) for m in table
+                                    for f in m._fields
+                                    if getattr(m, f) is not None}
+            ials[name] = model.factors["movieid"]
+    finally:
+        dist_module.distributed_ials_events = banded
+        config.set_default("hbm_score_budget_gb", saved)
+    check(calls == [1], "ImplicitALS(mesh=(4, 1)) past the budget took "
+          "distributed_ials_events")
+    out["ials_item_rel_diff"] = (torch.linalg.norm(
+        ials["ials_mesh"] - ials["ials_single"])
+        / torch.linalg.norm(ials["ials_single"])).item()
+    out["ials_hr_delta"] = abs(out["metrics"]["ials_mesh"]["hr"]
+                               - out["metrics"]["ials_single"]["hr"])
+    log(f"  iALS past the budget: mesh {out['build_s']['ials_mesh']:.2f} s, "
+        f"one device {out['build_s']['ials_single']:.2f} s")
+    check(out["ials_item_rel_diff"] <= 1e-4 and out["ials_hr_delta"] <= 2e-3,
+          f"distributed_ials_events (4, 1) vs ials_train_events: item "
+          f"factors {out['ials_item_rel_diff']:.2e} <= 1e-4 relative, "
+          f"|dHR@{TOPK}| {out['ials_hr_delta']:.2e} <= 2e-3")
+    del data, ials, model
+
+    # ---- the dense route, timing only: the 34.1 GB block on the card
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Timer() as t:
+        dense = torch.zeros(shape, dtype=torch.float32, device=rows.device)
+        dense.index_put_((rows, cols), vals, accumulate=True)
+    out["dense_staging_s"] = t.seconds
+    out["dense_gb"] = dense.numel() * 4 / 1e9
+    for key in ("dense_build_s", "dense_build_warm_s"):
+        with Timer() as t:
+            build(dense_operator(dense))
+        out[key] = t.seconds
+    log(f"  dense route: {out['dense_gb']:.1f} GB block in "
+        f"{out['dense_staging_s']:.2f} s, Krylov build "
+        f"{out['dense_build_s']:.3f} / {out['dense_build_warm_s']:.3f} s")
+    del dense
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -2861,10 +3371,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-10) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-11) "
               "need it", file=sys.stderr)
         return 1
-    from polara_tpu_torch.datasets import ML1M_GEOMETRY, ML10M_GEOMETRY
+    from polara_tpu_torch.datasets import (ML1M_GEOMETRY, ML10M_GEOMETRY,
+                                           NETFLIX_GEOMETRY)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2997,6 +3508,29 @@ def main() -> int:
         f"{side['peak_mem_gib']:.2f} GiB")
     log("  " + json.dumps({"side": side}))
 
+    log("phase 11: PureSVD rank 50 at Netflix geometry through the split "
+        "(two budgets) and tiled streaming operators, every user scored; "
+        "distributed_chunked_rsvd and ImplicitALS past the budget on (4, 1) "
+        "meshes; the exact f64 reference; the dense route's build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream = streaming_phase(NETFLIX_GEOMETRY, ML10M_GEOMETRY)
+    for name in ("split_jax", "split_port", "tiled", "exact", "popularity"):
+        check(stream["launches"][name] == 1,
+              f"{name} launched the kernel once over all "
+              f"{NETFLIX_GEOMETRY['n_users']} users "
+              f"({stream['launches'][name]}x)")
+    check(stream["launches"]["mesh"] == 2,
+          f"the mesh build and its single-device twin launched the kernel "
+          f"({stream['launches']['mesh']}x == 2)")
+    for name in ("ials_mesh", "ials_single"):
+        check(stream["launches"][name] > 0,
+              f"{name} launched the kernel ({stream['launches'][name]}x)")
+    log(f"  phase 11: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{stream['peak_mem_gib']:.2f} GiB")
+    log("  " + json.dumps({"stream": stream}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -3011,7 +3545,8 @@ def main() -> int:
     shapes = {}
     for name, fields in (("tensor_scoring", tensor["kernel"]),
                          ("serving_batch", serving["kernel"]),
-                         ("hybrid_scoring", side["kernel"])):
+                         ("hybrid_scoring", side["kernel"]),
+                         ("netflix_scoring", stream["kernel"])):
         fields = dict(fields)
         fields["bound_ms"], fields["bound_by"] = bound_ms(
             fields.pop("flop"), fields.pop("bytes"))
@@ -3037,7 +3572,15 @@ def main() -> int:
                              "hybrid_lce": (side["launches"]["lce"]
                                             + side["launches"]["kpmf"]),
                              "hybrid_serving":
-                                 side["launches"]["hybrid_serving"]},
+                                 side["launches"]["hybrid_serving"],
+                             "stream": stream["launches"]["main"],
+                             "stream_exact_popularity": (
+                                 stream["launches"]["exact"]
+                                 + stream["launches"]["popularity"]),
+                             "stream_mesh": stream["launches"]["mesh"],
+                             "stream_ials": (
+                                 stream["launches"]["ials_mesh"]
+                                 + stream["launches"]["ials_single"])},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,

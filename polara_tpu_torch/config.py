@@ -2,7 +2,9 @@
 
 PyTorch counterpart of :mod:`polara_tpu.config`: the same flat registry of
 named defaults, with the Pallas switch ``pallas_scoring`` replaced by
-``fused_scoring`` (the hand-written CUDA score->mask->top-k kernel).
+``fused_scoring`` (the hand-written CUDA score->mask->top-k kernel), and
+the streaming head budget ``streaming_head_gb`` derived from the card's
+free memory unless it is set.
 """
 from __future__ import annotations
 
@@ -51,6 +53,16 @@ _DEFAULTS: Dict[str, Any] = dict(
     # descending interaction count (equal-score ties resolve toward the
     # popular item).  None keeps catalog order.
     fused_item_order="popularity",
+    # beyond-memory streaming tier (models/svd.py past the budget): route
+    # the Zipf head of the event stream through a dense (users x P) block
+    # (ops/sparse.py:split_coo_operator) instead of the tiled gathers; the
+    # split declines by itself when item margins are too flat to pay
+    streaming_split_head=True,
+    # the head block's budget in GiB; None: a quarter of the free device
+    # memory (torch.cuda.mem_get_info) on the operator's card at staging,
+    # and the JAX package's 2.0 on the CPU
+    # (ops/sparse.py:resolve_head_budget)
+    streaming_head_gb=None,
 )
 
 

@@ -1,9 +1,12 @@
 """Synthetic interaction generators (counterpart of
 :mod:`polara_tpu.datasets.synthetic`).
 
-:func:`make_synthetic_interactions` is the JAX package's numpy generator,
-draw for draw.  :func:`make_realistic_coo_device` keeps the calibration of
-the JAX device generator (Zipf margins, slowly decaying latent spectrum,
+:func:`make_synthetic_interactions`, :func:`make_realistic_coo` and
+:func:`make_realistic_interactions` are the JAX package's numpy
+generators, draw for draw (``numpy.random.RandomState``), so their arrays
+and frames equal the JAX package's bit for bit.
+:func:`make_realistic_coo_device` keeps the calibration of the JAX
+device generator (Zipf margins, slowly decaying latent spectrum,
 preference-correlated exposure by exact Gumbel-top-k sampling) but draws
 from a ``torch.Generator`` on ``device``: the same distribution, a
 different random stream.
@@ -25,6 +28,10 @@ ML1M_RATING_HIST = (0.056, 0.108, 0.261, 0.349, 0.226)
 # published numbers use).
 ML10M_GEOMETRY = dict(n_users=69_878, n_items=10_677, n_events=10_000_054)
 ML1M_GEOMETRY = dict(n_users=6_040, n_items=3_706, n_events=1_000_209)
+# Netflix-prize geometry: dense f32 at this shape is 31.8 GiB, past the
+# memory budget, so models take the streaming tier (ops/sparse.py).
+NETFLIX_GEOMETRY = dict(n_users=480_189, n_items=17_770,
+                        n_events=100_480_507)
 
 
 def make_synthetic_interactions(n_users: int = 1000, n_items: int = 500,
@@ -61,6 +68,101 @@ def make_synthetic_interactions(n_users: int = 1000, n_items: int = 500,
     if include_time:
         frame["timestamp"] = rs.randint(0, 10_000_000, len(users))
     return pd.DataFrame(frame)
+
+
+def make_realistic_coo(n_users: int, n_items: int, n_events: int,
+                       rank: int = 16, popularity_skew: float = 0.85,
+                       activity_skew: float = 0.6,
+                       spectrum_decay: float = 0.6, noise: float = 0.4,
+                       affinity: float = 2.0, popularity_bias: float = 0.15,
+                       rating_hist=ML1M_RATING_HIST,
+                       min_events_per_user: int = 5,
+                       seed: Optional[int] = 0):
+    """Calibrated interaction log as row-sorted numpy COO arrays.
+
+    Items follow a Zipf(``popularity_skew``) profile and users a
+    Zipf(``activity_skew``) activity profile; latent factor k carries
+    weight ``k**-spectrum_decay``; each user's items are drawn without
+    replacement from ``softmax(log pop + affinity * u.v)`` (exact
+    Gumbel-top-k sampling); ratings discretize the latent affinity plus
+    noise onto 1..5 with global quantile edges matched to ``rating_hist``,
+    with a mild bias toward popular items.  Pairs are unique.  Returns
+    ``(rows, cols, vals)`` (int32, int32, float64); the event count is
+    ``n_events`` up to per-user clipping.
+    """
+    max_per_user = int(0.5 * n_items)
+    if n_events > n_users * max_per_user:
+        raise ValueError("n_events too dense for without-replacement "
+                         "sampling")
+    rs = np.random.RandomState(seed)
+    item_w = 1.0 / np.arange(1, n_items + 1) ** popularity_skew
+    item_w /= item_w.sum()
+    user_w = 1.0 / np.arange(1, n_users + 1) ** activity_skew
+    user_w /= user_w.sum()
+
+    # per-user event counts: largest-remainder split of n_events over the
+    # activity profile, clipped to [min_events_per_user, n_items/2]
+    n_per_user = _largest_remainder_counts(
+        n_events, user_w, min_events_per_user, max_per_user, rs)
+
+    # low-rank latent with sigma_k ~ k^-decay
+    col_weights = np.arange(1, rank + 1, dtype=np.float64) ** -spectrum_decay
+    u_fac = rs.randn(n_users, rank) * col_weights
+    i_fac = rs.randn(n_items, rank)
+
+    log_pop = np.log(item_w)
+    rows_parts, cols_parts, score_parts = [], [], []
+    chunk = max(1, min(n_users, int(4e7) // max(n_items, 1)))
+    for start in range(0, n_users, chunk):
+        stop = min(start + chunk, n_users)
+        aff = u_fac[start:stop] @ i_fac.T
+        aff /= max(aff.std(), 1e-12)
+        logits = log_pop[None, :] + affinity * aff
+        # Gumbel-top-k == sampling without replacement from softmax(logits)
+        gumbel = -np.log(-np.log(
+            rs.random_sample((stop - start, n_items)) + 1e-300) + 1e-300)
+        keyed = logits + gumbel
+        kmax = int(n_per_user[start:stop].max())
+        top = np.argpartition(-keyed, kmax - 1, axis=1)[:, :kmax]
+        # order the candidate block by key so row r takes its first n_r
+        order = np.argsort(-np.take_along_axis(keyed, top, axis=1), axis=1)
+        top = np.take_along_axis(top, order, axis=1)
+        for r in range(stop - start):
+            k = int(n_per_user[start + r])
+            items_r = top[r, :k]
+            rows_parts.append(np.full(k, start + r, dtype=np.int32))
+            cols_parts.append(items_r.astype(np.int32))
+            score_parts.append(aff[r, items_r])
+    rows = np.concatenate(rows_parts)
+    cols = np.concatenate(cols_parts)
+    score = np.concatenate(score_parts)
+
+    # ratings: latent affinity + noise + mild popularity->rating bias
+    score = score + noise * rs.randn(len(score))
+    pop_z = np.log1p(cols.astype(np.float64))
+    pop_z = (pop_z - pop_z.mean()) / max(pop_z.std(), 1e-12)
+    score -= popularity_bias * pop_z  # low col index == popular == higher
+    edges = np.quantile(score, np.cumsum(rating_hist)[:-1])
+    vals = (np.digitize(score, edges) + 1).astype(np.float64)
+    return rows, cols, vals
+
+
+def make_realistic_interactions(n_users: int = 2000, n_items: int = 1200,
+                                n_events: int = 100_000,
+                                seed: Optional[int] = 0, **kwargs):
+    """pandas frame over :func:`make_realistic_coo` with non-contiguous
+    external ids (so reindexing paths are exercised) and a seeded shuffle
+    of the event order (so fold splits see interleaved users)."""
+    import pandas as pd
+
+    rows, cols, vals = make_realistic_coo(n_users, n_items, n_events,
+                                          seed=seed, **kwargs)
+    frame = pd.DataFrame({"userid": rows.astype(np.int64) * 7 + 10_001,
+                          "movieid": cols.astype(np.int64) * 3 + 501,
+                          "rating": vals.astype(np.int64)})
+    rs = np.random.RandomState(None if seed is None else seed + 1)
+    return (frame.sample(frac=1, random_state=rs)
+            .reset_index(drop=True))
 
 
 def _largest_remainder_counts(n_events: int, weights: np.ndarray,

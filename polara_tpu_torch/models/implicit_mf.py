@@ -113,23 +113,27 @@ class ImplicitALS(_RankedFactorModel):
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
         dense_bytes = coo.shape[0] * coo.shape[1] * itemsize
         if dense_bytes > budget:
-            if mesh is not None and mesh.size > 1:
-                raise NotImplementedError(
-                    "ImplicitALS under a mesh beyond the memory budget needs "
-                    "the event-sharded distributed_ials_events, not ported "
-                    "yet (ROADMAP A12); raise hbm_score_budget_gb or build "
-                    "without a mesh")
             stream_kw = {} if self.batch_entities is None else \
                 {"batch_entities": self.batch_entities}
             with track_time(self.training_time, verbose=self.verbose,
                             model=self.method):
-                result = ials_train_events(
-                    coo.rows, coo.cols, coo.vals, coo.shape, self.rank,
-                    alpha=self.alpha, weight=self.weight_func,
-                    epsilon=self.epsilon, reg=self.regularization,
-                    num_epochs=self.num_epochs, seed=self.seed,
-                    dtype=self.compute_dtype, device=self.device,
-                    **stream_kw)
+                if mesh is not None and mesh.size > 1:
+                    from polara_tpu_torch.parallel.distributed import \
+                        distributed_ials_events
+                    result = distributed_ials_events(
+                        coo.rows, coo.cols, coo.vals, coo.shape, self.rank,
+                        mesh, alpha=self.alpha, weight=self.weight_func,
+                        epsilon=self.epsilon, reg=self.regularization,
+                        num_epochs=self.num_epochs, seed=self.seed,
+                        dtype=self.compute_dtype, **stream_kw)
+                else:
+                    result = ials_train_events(
+                        coo.rows, coo.cols, coo.vals, coo.shape, self.rank,
+                        alpha=self.alpha, weight=self.weight_func,
+                        epsilon=self.epsilon, reg=self.regularization,
+                        num_epochs=self.num_epochs, seed=self.seed,
+                        dtype=self.compute_dtype, device=self.device,
+                        **stream_kw)
         else:
             dense = self.get_training_matrix(dense=True)
             with track_time(self.training_time, verbose=self.verbose,

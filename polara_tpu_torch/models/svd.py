@@ -3,12 +3,16 @@ ScaledSVD.
 
 Counterpart of :mod:`polara_tpu.models.svd` (reference
 ``polara/recommender/models.py:800-898``): randomized subspace iteration
-or block Krylov (:mod:`polara_tpu_torch.ops.rsvd`) over the dense training
-block (or its COO operator past the memory budget), and scoring as
+or block Krylov (:mod:`polara_tpu_torch.ops.rsvd`), and scoring as
 ``R_test · V · Vᵀ`` with ``proj = R_test · V`` per chunk as a sorted
-segment sum (bit-reproducible on the card).  Under a mesh the dense block and its bf16 copy shard by
-rows over the ``users`` axis and the solve orthogonalizes with
-CholeskyQR2.  The streaming tiers are not ported yet.
+segment sum (bit-reproducible on the card).  The build's operator follows
+the JAX package's routing under ``hbm_score_budget_gb``: the dense
+training block when it fits; else the COO operator when its (nnz x block)
+panel fits; else a streaming operator (the split head, or the tiled one
+with ``streaming_split_head`` off).  Under a mesh the dense block and its
+bf16 copy shard by rows over the ``users`` axis and the solve
+orthogonalizes with CholeskyQR2; past the budget the events shard into
+row bands (``distributed_chunked_rsvd``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from polara_tpu_torch.ops.sparse import (CooMatrix, MatmulOperator,
                                          dense_operator,
                                          dense_power_operator,
                                          sorted_rows_matmul)
+from polara_tpu_torch.parallel.distributed import distributed_chunked_rsvd
 from polara_tpu_torch.runtime.mesh import shard_device_count, shard_rows
 from polara_tpu_torch.runtime.timing import track_time
 
@@ -142,19 +147,40 @@ class SVDModel(RecommenderModel):
             block = self.rank + (self.svd_oversample
                                  if self.svd_oversample is not None
                                  else max(10, self.rank))
+            coo_bytes = matrix.nnz * block * itemsize
             if self._fits_dense_budget(matrix, mesh):
                 dense, power_op = self._dense_operands(matrix, mesh)
                 svd_matrix = dense_operator(dense)
-            elif mesh is not None and matrix.nnz * block * itemsize \
-                    > self._dense_budget_bytes(mesh):
-                raise NotImplementedError(
-                    "SVDModel under a mesh beyond the memory budget needs "
-                    "the event-sharded streaming rSVD "
-                    "(distributed_chunked_rsvd), not ported yet (ROADMAP "
-                    "A12/A16); raise hbm_score_budget_gb or build without "
-                    "a mesh")
-            else:
+            elif coo_bytes <= self._dense_budget_bytes(mesh):
                 svd_matrix = matrix.operator()
+            elif mesh is not None:
+                # past the budget under a mesh: the events shard into
+                # user-row bands, each streamed on its own device
+                self.svd_info = {}
+                with track_time(self.training_time, verbose=self.verbose,
+                                model=self.method):
+                    result = distributed_chunked_rsvd(
+                        matrix.rows, matrix.cols, matrix.vals,
+                        matrix.shape, self.rank, mesh,
+                        oversample=self.svd_oversample,
+                        n_iter=self.svd_iters, seed=self.seed,
+                        tol=self.svd_tol,
+                        split_head=defaults.get_default(
+                            "streaming_split_head"),
+                        head_budget_gb=defaults.get_default(
+                            "streaming_head_gb"),
+                        dtype=self.compute_dtype)
+                self._store_factors(result, return_factors)
+                return
+            elif defaults.get_default("streaming_split_head"):
+                # even the COO operator's (nnz x block) panel is past the
+                # budget: stream the events, the Zipf head as a dense
+                # block when the item margins are skewed enough to pay
+                svd_matrix = matrix.split_operator(
+                    head_budget_gb=defaults.get_default(
+                        "streaming_head_gb"))
+            else:
+                svd_matrix = matrix.tiled_operator()
 
         # CholeskyQR2 shards cleanly (a b x b Gram psum); Householder QR
         # would gather the whole panel onto one device

@@ -49,7 +49,7 @@ def _as_operator(a: Union[torch.Tensor, MatmulOperator]) -> MatmulOperator:
 
 
 def _operator_device(op: MatmulOperator) -> torch.device:
-    return op.operands[0].device
+    return op.device
 
 
 def cholesky_qr2(y: Panel, eps: float = 0.0) -> Tuple[Panel, torch.Tensor]:

@@ -24,11 +24,12 @@ device, and the collectives are the copies of
 * **BPR** (:func:`distributed_bpr`): the batch's gradient math shards,
   or each shard runs its own chain (local SGD);
 * **HOOI** (:func:`distributed_hooi`): the tensor's events shard, and
-  the per-shard (entity x level x rank) sums are added in shard order.
-
-The other event-sharded trainers of the JAX module
-(``distributed_chunked_rsvd``, ``distributed_ials_events``) are not
-ported yet.
+  the per-shard (entity x level x rank) sums are added in shard order;
+* **the streaming tier** past the memory budget:
+  :func:`distributed_chunked_rsvd` (contiguous row bands of chunked
+  events, optionally with a split dense head) and
+  :func:`distributed_ials_events` (entities dealt strided onto bands of
+  tile-aligned event panels), each band staged on its own device.
 """
 from __future__ import annotations
 
@@ -507,3 +508,371 @@ def distributed_hooi(idx: np.ndarray, val: np.ndarray, shape, core_shape,
     return _hooi_until(sums, u0, u1, u2, shape, core_shape, num_iters,
                        float(growth_tol), _qr_method(qr_method),
                        verbose=verbose, label="distributed HOOI")
+
+
+# --------------------------------------------------------------------------
+# the event-sharded streaming tier
+# --------------------------------------------------------------------------
+
+class _Band(NamedTuple):
+    """One users-axis shard's contiguous row band, staged on its device:
+    the chunked row-sorted side (``mm``), the column-sorted side
+    (``rmm``), and the band's slice of the split head (None without one).
+    A side is None when the band holds no tail events."""
+    device: torch.device
+    row_side: object
+    col_side: object
+    head: Optional[torch.Tensor]
+
+
+def _band_passes(band: _Band, m_band: int, n: int, head_ids=None):
+    """One band's ``A @ x`` (its (m_band, b) rows) and local ``Aᵀ @ y``
+    (the band's (n, b) partial, which the caller sums over bands): the
+    chunked streaming passes over the band's events plus, with a split
+    head, the band's dense head rows."""
+    from polara_tpu_torch.ops.sparse import (_head_mm_blocks,
+                                             _head_rmm_blocks,
+                                             _stream_pass)
+    ids = None if head_ids is None else head_ids.to(band.device)
+
+    def mm(x):
+        x = x.to(band.device)
+        out = _stream_pass(band.row_side, x, m_band)
+        if band.head is not None:
+            out = out + _head_mm_blocks(band.head, ids, x, m_band)
+        return out
+
+    def rmm_local(y):
+        out = _stream_pass(band.col_side, y, n)
+        if band.head is not None:
+            # tail events never reference head columns: disjoint writes
+            out[ids] = out[ids] + _head_rmm_blocks(band.head, y)
+        return out
+
+    return mm, rmm_local
+
+
+def _rsvd_power_psum(mm, rmm, omega: torch.Tensor, n_iter: int, k: int,
+                     tol: Optional[float], max_iter: int):
+    """The power iteration of the distributed rSVD: the tall (user-side)
+    panel is row-sharded and orthogonalized by CholeskyQR2 over a psum'd
+    b x b Gram; the item-side panel is whole on the home device.  Without
+    ``tol``, ``n_iter`` iterations; with it, until the top-k singular
+    estimates are relatively stable below ``tol`` (at most ``max_iter``),
+    the single-device stopping rule.  Returns ``(u, s, v)`` with ``u``
+    gathered, padding rows dropped."""
+    q, _ = cholesky_qr2(mm(omega))
+    if tol is None:
+        for _ in range(n_iter):
+            z, _ = cholesky_qr2(rmm(q))
+            q, _ = cholesky_qr2(mm(z))
+    else:
+        s_prev = torch.full((k,), torch.inf, dtype=omega.dtype,
+                            device=omega.device)
+        for _ in range(max_iter):
+            z, rz = cholesky_qr2(rmm(q))
+            s_top = torch.abs(torch.diagonal(rz))[:k]
+            q, _ = cholesky_qr2(mm(z))
+            rel = torch.max(torch.abs(s_top - s_prev)
+                            / torch.clamp(torch.abs(s_top), min=1e-30))
+            s_prev = s_top
+            if bool(rel < tol):
+                break
+    b_mat = rmm(q).T                     # (blk, n)
+    ub, s, vt = torch.linalg.svd(b_mat, full_matrices=False)
+    return (q @ ub).gather()[:, :k], s[:k], vt[:k, :].T
+
+
+def _chunked_rsvd_local(bands: List[_Band], omega: torch.Tensor,
+                        n_rows: int, m_band: int, n_iter: int, k: int,
+                        tol: Optional[float] = None, max_iter: int = 100,
+                        head_ids: Optional[torch.Tensor] = None):
+    """The body of :func:`distributed_chunked_rsvd` over its bands (the
+    JAX package's per-device ``shard_map`` body, here a loop over bands,
+    each on its own device):
+
+    * ``A @ x``: each band's local product, kept as its shard of a
+      :class:`ShardedRows` panel (no traffic);
+    * ``Aᵀ @ y``: each band's local column reduction of its shard, summed
+      in band order on the home device (one (n x b) ``psum``).
+
+    With ``head_ids`` the bands carry split heads (the JAX package's
+    ``_split_rsvd_local``: int8 when lossless, upcast one row block at a
+    time); the head adds no collective."""
+    home = omega.device
+    n = omega.shape[0]
+    passes = [_band_passes(band, m_band, n, head_ids) for band in bands]
+
+    def mm(x):
+        return ShardedRows(tuple(p[0](x) for p in passes), n_rows)
+
+    def rmm(y):
+        return psum([p[1](block) for p, block in zip(passes, y.blocks)],
+                    home)
+
+    return _rsvd_power_psum(mm, rmm, omega, n_iter, k, tol, max_iter)
+
+
+def distributed_chunked_rsvd(rows, cols, vals, shape, k: int, mesh: Mesh,
+                             oversample: Optional[int] = None,
+                             n_iter: int = 6, seed: int = 0,
+                             event_chunk: int = 1_000_000,
+                             tol: Optional[float] = None,
+                             max_iter: int = 100,
+                             dtype: torch.dtype = torch.float32,
+                             split_head: bool = False,
+                             head_items="auto",
+                             head_budget_gb: Optional[float] = 4.0,
+                             head_block_rows: int = 4096,
+                             min_coverage: float = 0.15) -> SvdResult:
+    """Randomized SVD of a beyond-budget sparse matrix with its events
+    sharded over the mesh's ``users`` axis (counterpart of the JAX
+    package's ``distributed_chunked_rsvd``).
+
+    The row range splits into contiguous bands of ``ceil(m / n_shards)``
+    rows, one per users shard.  Each band's events are staged from the
+    event tensors on the band's own device in the chunked layout
+    (:func:`~polara_tpu_torch.ops.sparse.chunked_coo_operator`'s: a
+    row-sorted side for ``A @ x`` and a column-sorted side for its local
+    ``Aᵀ @ y``, both chunks of ``event_chunk``), so a device holds about
+    nnz / n_shards events plus one (event_chunk, block) panel.  The
+    subspace iteration is the single-device one with
+    ``qr_method="cholesky2"``: the same random start (the generator of
+    ``seed`` on the home device), the same steps, other float order.
+    ``tol`` turns on the single-device stopping rule; the block never
+    escalates (fixed at ``k + oversample``).
+
+    ``split_head``: the P most-rated items' events go into a dense head,
+    each band holding its rows (:func:`_stage_split_head`), with the rest
+    in the bands' chunked tails; ``head_budget_gb`` None derives the
+    budget from the home device's free memory
+    (:func:`~polara_tpu_torch.ops.sparse.resolve_head_budget`).
+
+    ``rows``/``cols``/``vals``: numpy arrays or tensors (moved once to
+    the home device, sorted there by row when they are not)."""
+    from polara_tpu_torch.ops.sparse import (_events_on_device,
+                                             _stage_chunked_side)
+
+    devices = users_devices(mesh)
+    home = devices[0]
+    n_dev = len(devices)
+    if len(vals) == 0:
+        raise ValueError("empty matrix")
+    rows, cols, vals = _events_on_device(rows, cols, vals, dtype, home,
+                                         "distributed_chunked_rsvd")
+    m, n = (int(s) for s in shape)
+    if k <= 0 or k > min(m, n):
+        raise ValueError(f"rank {k} out of range for shape {(m, n)}")
+    blk = min(k + (oversample if oversample is not None else max(10, k)),
+              min(m, n))
+    m_band = -(-m // n_dev)
+
+    head = None
+    if split_head:
+        head = _stage_split_head(rows, cols, vals, m, n, devices, m_band,
+                                 head_items, head_budget_gb,
+                                 head_block_rows, min_coverage, dtype)
+    head_ids, heads = None, [None] * n_dev
+    if head is not None:
+        heads, head_ids, tail = head
+        rows, cols, vals = rows[tail], cols[tail], vals[tail]
+
+    bounds = torch.searchsorted(
+        rows, torch.arange(n_dev + 1, device=home) * m_band).tolist()
+    bands = []
+    for b, device in enumerate(devices):
+        lo, hi = bounds[b], bounds[b + 1]
+        row_side = col_side = None
+        if hi > lo:
+            r = (rows[lo:hi] - b * m_band).to(device)
+            c, v = cols[lo:hi].to(device), vals[lo:hi].to(device)
+            corder = torch.argsort(c, stable=True)
+            row_side = _stage_chunked_side(r, c, v, event_chunk)
+            col_side = _stage_chunked_side(c[corder], r[corder], v[corder],
+                                           event_chunk)
+        bands.append(_Band(device, row_side, col_side, heads[b]))
+    del rows, cols, vals
+
+    gen = generator_from_seed(seed, home)
+    omega = torch.randn((n, blk), generator=gen, dtype=dtype, device=home)
+    common = dict(n_rows=m, m_band=m_band, n_iter=n_iter, k=k,
+                  tol=None if tol is None else float(tol),
+                  max_iter=max_iter)
+    u, s, v = _chunked_rsvd_local(bands, omega, head_ids=head_ids,
+                                  **common)
+    return SvdResult(u=u, s=s, v=v)
+
+
+def _stage_split_head(rows, cols, vals, m: int, n: int, devices,
+                      m_band: int, head_items, head_budget_gb,
+                      head_block_rows: int, min_coverage: float,
+                      dtype: torch.dtype):
+    """Head selection and the banded head blocks of the split-head mesh
+    tier, by the single-device operator's rules
+    (:func:`~polara_tpu_torch.ops.sparse.split_coo_operator`): P from the
+    budget, rounded to 128, declined below ``min_coverage``; the top
+    counts with ties to the lower id (the JAX package's ``argpartition``
+    leaves ties unordered; any head gives the same products).  Each band
+    builds its rows' ``(nb_local, block_rows, P)`` head on its own device;
+    when one band's cells overflow int8, every band keeps ``dtype``.
+    Returns ``(heads, head_ids, tail_mask)`` or None when the head
+    declines."""
+    from polara_tpu_torch.ops.sparse import (_top_items, build_head_block,
+                                             resolve_head_budget)
+
+    home = rows.device
+    nnz = rows.shape[0]
+    budget = resolve_head_budget(head_budget_gb, home)
+    int8_ok = bool(((vals == torch.round(vals)) & (vals.abs() <= 127)).all())
+    itemsize = 1 if int8_ok else torch.empty((), dtype=dtype).element_size()
+    if head_items == "auto":
+        p = int(budget * 2 ** 30) // (m * itemsize)
+    else:
+        p = int(head_items)
+    p = min(p, n)
+    if p >= 128:
+        p = (p // 128) * 128
+    if p < 1:
+        return None
+    if p < n:
+        counts = torch.bincount(cols, minlength=n)
+        head_ids = _top_items(counts, p)
+        if float(counts[head_ids].sum()) / nnz < min_coverage:
+            return None
+        is_head = torch.zeros(n, dtype=torch.bool, device=home)
+        is_head[head_ids] = True
+        mask = is_head[cols]
+    else:
+        head_ids = torch.arange(n, device=home)
+        mask = torch.ones(nnz, dtype=torch.bool, device=home)
+    head_pos = torch.zeros(n, dtype=torch.int64, device=home)
+    head_pos[head_ids] = torch.arange(p, device=home)
+    hr, hc, hv = rows[mask], cols[mask], vals[mask]
+    br = min(head_block_rows, m_band)
+    nb_local = -(-m_band // br)
+    bounds = torch.searchsorted(
+        hr, torch.arange(len(devices) + 1, device=home) * m_band).tolist()
+    heads = []
+    for b, device in enumerate(devices):
+        lo, hi = bounds[b], bounds[b + 1]
+        heads.append(build_head_block(
+            (hr[lo:hi] - b * m_band).to(device),
+            head_pos[hc[lo:hi]].to(device), hv[lo:hi].to(device),
+            nb_local * br, p, dtype, head_budget_gb=budget,
+            int8_ok=int8_ok).view(nb_local, br, p))
+    if any(h.dtype != torch.int8 for h in heads):
+        heads = [h.to(dtype) for h in heads]
+    return heads, head_ids, ~mask
+
+
+def distributed_ials_events(rows, cols, vals, shape, rank: int, mesh: Mesh,
+                            alpha: float = 1.0, weight="log2",
+                            epsilon: float = 1.0, reg: float = 0.01,
+                            num_epochs: int = 15, seed: Optional[int] = 0,
+                            tile: int = 128, batch_entities: int = 4096,
+                            max_window_events: int = 4_000_000,
+                            dtype: torch.dtype = torch.float32,
+                            train_stats: Optional[dict] = None):
+    """Streaming (beyond-budget) iALS with the event stream sharded over
+    the mesh's ``users`` axis: the mesh tier of
+    :func:`~polara_tpu_torch.ops.implicit.ials_train_events`.
+
+    Entities deal onto shards strided (entity ``g`` -> shard
+    ``g % n_shards``, local id ``g // n_shards``), so Zipf-skewed event
+    counts balance instead of piling the popular head onto one band.  Each
+    shard stages only its own bands' tile-aligned panels for both sweep
+    sides, on its own device (about ``2·nnz / n_shards`` events each); a
+    band with no events runs on one zero-weight placeholder event.  A
+    half-sweep solves each band's systems against the whole other-side
+    panel (:func:`~polara_tpu_torch.ops.implicit._ell_half_sweep`), and
+    the bands' factors gather on the home device in natural order: two
+    panel gathers per epoch, bytes independent of nnz.  With one process
+    driving the mesh, each band keeps its own staging geometry (the JAX
+    package forces one common geometry for ``shard_map``).
+
+    Same start and sweep order as the single-device event tier, so the
+    two differ by the order of float sums.  ``train_stats`` receives the
+    per-epoch wall seconds and the bytes each device receives."""
+    import time
+
+    from polara_tpu_torch.ops.implicit import (ImplicitFactors,
+                                               _ell_half_sweep,
+                                               _initial_item_factors,
+                                               canonical_weight, confidence,
+                                               stage_events_side)
+    from polara_tpu_torch.ops.sparse import _events_on_device
+
+    devices = users_devices(mesh)
+    home = devices[0]
+    n_dev = len(devices)
+    n_users, n_items = (int(s) for s in shape)
+    if len(vals) == 0:
+        raise ValueError("empty matrix")
+    weight = canonical_weight(weight)
+    rows_d, cols_d, vals_d = _events_on_device(
+        rows, cols, vals, dtype, home, "distributed_ials_events",
+        assume_sorted=True)
+    cm1 = confidence(vals_d, alpha, weight, epsilon)
+
+    nl_u = -(-n_users // n_dev)
+    nl_i = -(-n_items // n_dev)
+    nu_pad, ni_pad = nl_u * n_dev, nl_i * n_dev
+
+    def stage_banded(maj, minor, w, n_local):
+        be = min(batch_entities, n_local)
+        order = torch.argsort(maj, stable=True)
+        maj, minor, w = maj[order], minor[order], w[order]
+        band = maj % n_dev
+        sides = []
+        for b, device in enumerate(devices):
+            sel = band == b
+            mb, nb, wb = maj[sel] // n_dev, minor[sel], w[sel]
+            if mb.shape[0] == 0:
+                # zero-weight placeholder: a zero margin adds nothing to
+                # the Gram or the right-hand side
+                mb, nb = mb.new_zeros(1), nb.new_zeros(1)
+                wb = wb.new_zeros(1)
+            sides.append(stage_events_side(
+                mb.to(device), nb.to(device), wb.to(device), n_local,
+                tile=tile, batch_entities=be,
+                max_window_events=max_window_events))
+        return sides
+
+    u_sides = stage_banded(rows_d, cols_d, cm1, nl_u)
+    i_sides = stage_banded(cols_d, rows_d, cm1, nl_i)
+    del rows_d, cols_d, vals_d, cm1
+
+    def natural(parts, n_pad):
+        # shard b's local row l is entity l * n_dev + b
+        k = parts[0].shape[1]
+        return (all_gather(parts, home).view(n_dev, -1, k)
+                .transpose(0, 1).reshape(n_pad, k))
+
+    def half(sides, other, n_pad):
+        return natural([_ell_half_sweep(
+            side.minor, side.w, side.starts, side.ent_starts, side.n_ents,
+            side.owner_local, other.to(device), reg,
+            n_entities=side.n_entities, batch_entities=side.batch_entities,
+            tile=side.tile) for side, device in zip(sides, devices)], n_pad)
+
+    item_factors = torch.nn.functional.pad(
+        _initial_item_factors(n_items, rank, seed, dtype, home),
+        (0, 0, 0, ni_pad - n_items))
+    user_factors = torch.zeros((nu_pad, rank), dtype=dtype, device=home)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    comm_bytes = (nu_pad + ni_pad) * rank * itemsize    # 2 panel gathers
+    epochs_log = [] if train_stats is not None else None
+    for _ in range(num_epochs):
+        start = time.perf_counter()
+        user_factors = half(u_sides, item_factors, nu_pad)
+        item_factors = half(i_sides, user_factors, ni_pad)
+        if epochs_log is not None:
+            if item_factors.is_cuda:
+                torch.cuda.synchronize(item_factors.device)
+            epochs_log.append({"wall_s": time.perf_counter() - start,
+                               "comm_bytes": comm_bytes})
+    if train_stats is not None:
+        train_stats.update(mode="sharded-event-streams", n_devices=n_dev,
+                           epochs=epochs_log)
+    return ImplicitFactors(user=user_factors[:n_users],
+                           item=item_factors[:n_items])

@@ -4,7 +4,12 @@ conversion, checkpoints, display helpers and the serving bundle
 which import this package)."""
 from polara_tpu_torch.runtime.checkpoint import load_factors, save_factors
 from polara_tpu_torch.runtime.display import print_frames, suppress_stdout
-from polara_tpu_torch.runtime.memory import plan_user_chunks, range_division
+from polara_tpu_torch.runtime.memory import (array_split,
+                                             get_available_memory,
+                                             get_chunk_size, pad_dim,
+                                             plan_user_chunks,
+                                             range_division,
+                                             read_npz_from_url)
 from polara_tpu_torch.runtime.mesh import (get_default_mesh, make_mesh,
                                            set_default_mesh, shard_rows,
                                            use_mesh, user_sharding)
@@ -12,7 +17,9 @@ from polara_tpu_torch.runtime.rng import check_random_state
 from polara_tpu_torch.runtime.timing import format_elapsed_time, track_time
 
 __all__ = ["track_time", "format_elapsed_time", "check_random_state",
-           "plan_user_chunks", "range_division", "save_factors",
+           "plan_user_chunks", "range_division", "pad_dim", "array_split",
+           "get_chunk_size", "get_available_memory", "read_npz_from_url",
+           "save_factors",
            "load_factors", "print_frames", "suppress_stdout", "make_mesh",
            "user_sharding", "shard_rows", "set_default_mesh",
            "get_default_mesh", "use_mesh", "ServingBundle"]

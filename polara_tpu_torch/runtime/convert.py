@@ -10,10 +10,16 @@ user and item factors of ``ProbabilisticMF``, ``ImplicitALS`` and
 warm-start users) from the JAX model's factors, and ``CoffeeModel``'s
 user, item and feedback factors with its ``core`` (its ``set_factors``
 also makes the data's feedback-level index, so no build is needed).
+
+:func:`result_from_jax` carries a solver's result across: an ``SvdResult``
+(from ``randomized_svd`` or the streaming tier's
+``distributed_chunked_rsvd``) or ``ImplicitFactors`` (from
+``ials_train_events`` or ``distributed_ials_events``) becomes the port's
+namedtuple of the same name, ready for the port's scoring.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -38,3 +44,23 @@ def factors_from_jax(factors: Dict[str, Optional[np.ndarray]],
         array = np.array(value, copy=True, order="C")  # writable copy
         out[name] = torch.from_numpy(array).to(device=device, dtype=dtype)
     return out
+
+
+def result_from_jax(result: NamedTuple,
+                    device: Union[str, torch.device, None] = None,
+                    dtype: torch.dtype = torch.float32) -> NamedTuple:
+    """A JAX package ``SvdResult`` or ``ImplicitFactors`` as the port's
+    namedtuple of the same name, its arrays as tensors on ``device``
+    (default: the card) in ``dtype``."""
+    from polara_tpu_torch.ops.implicit import ImplicitFactors
+    from polara_tpu_torch.ops.rsvd import SvdResult
+
+    port = {"SvdResult": SvdResult,
+            "ImplicitFactors": ImplicitFactors}.get(type(result).__name__)
+    if port is None:
+        raise TypeError(f"no port counterpart for {type(result).__name__}")
+    fields = factors_from_jax(
+        {name: np.asarray(value) for name, value
+         in zip(result._fields, result)},
+        resolve_device(device, "result_from_jax"), dtype)
+    return port(**fields)

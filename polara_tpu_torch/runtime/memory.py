@@ -1,8 +1,10 @@
 """Static chunk planning against a device-memory budget.
 
-Copy of :mod:`polara_tpu.runtime.memory`'s planner with the same budget
+Copy of :mod:`polara_tpu.runtime.memory`: the planner with the same budget
 semantics (``hbm_score_budget_gb`` caps one dense score block), so both
-packages cut the test users into identical chunks.
+packages cut the test users into identical chunks, and the reference's
+helpers around it (``pad_dim``, ``read_npz_from_url``,
+``get_available_memory``, ``get_chunk_size``, ``array_split``).
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import List, Tuple
 
 from polara_tpu_torch.config import get_default
 
+_LANE = 128
 _SUBLANE = 8
 
 
@@ -56,3 +59,61 @@ def plan_user_chunks(n_users: int, n_items: int,
     chunk = max(align, round_up(chunk, align) if chunk >= align else chunk)
     bounds = range_division(n_users, chunk)
     return list(zip(bounds[:-1], bounds[1:]))
+
+
+def pad_dim(n: int, lane_align: bool = True) -> int:
+    """Pad a trailing dimension to a multiple of 128 (or of 8 with
+    ``lane_align=False``), the JAX package's tile grid."""
+    return round_up(max(n, 1), _LANE if lane_align else _SUBLANE)
+
+
+def read_npz_from_url(url: str):
+    """Load an npz archive from a URL (reference
+    ``polara/recommender/utils.py:56-60``); ``file://`` URLs read local
+    files, other schemes need network access."""
+    import io
+    from urllib.request import urlopen
+
+    import numpy as np
+    with urlopen(url) as response:
+        return np.load(io.BytesIO(response.read()))
+
+
+def get_available_memory() -> float:
+    """Available host RAM in bytes (reference
+    ``polara/tools/systools.py:13-57``): psutil when present, else
+    ``/proc/meminfo``.  Device memory is ``torch.cuda.mem_get_info``'s."""
+    try:
+        import psutil
+        return float(psutil.virtual_memory().available)
+    except ImportError:
+        pass
+    try:
+        with open("/proc/meminfo") as handle:
+            for line in handle:
+                if line.startswith("MemAvailable:"):
+                    return float(line.split()[1]) * 1024.0
+    except OSError:
+        pass
+    raise RuntimeError("cannot determine available memory on this platform")
+
+
+def get_chunk_size(n_rows: int, n_cols: int, scores_multiplier: int = 1,
+                   budget_gb: float | None = None) -> int:
+    """Largest row chunk whose dense score block fits the budget
+    (reference ``polara/recommender/utils.py:16-47``), from the static
+    planner."""
+    bounds = plan_user_chunks(n_rows, n_cols,
+                              scores_multiplier=scores_multiplier,
+                              budget_gb=budget_gb)
+    return bounds[0][1] - bounds[0][0]
+
+
+def array_split(n_rows: int, n_cols: int, scores_multiplier: int = 1,
+                budget_gb: float | None = None) -> List[int]:
+    """Chunk bounds like the reference's ``array_split``
+    (``utils.py:50-53``): ``[0, c, 2c, ..., n_rows]``."""
+    chunk = get_chunk_size(n_rows, n_cols,
+                           scores_multiplier=scores_multiplier,
+                           budget_gb=budget_gb)
+    return range_division(n_rows, chunk)

@@ -23,16 +23,12 @@ UNPORTED = {
         "get_amazon_data", "get_bookcrossing_data", "get_epinions_data",
         "get_movielens_data", "filter_short_head", "get_netflix_data",
         "get_yahoo_music_data",
-        "make_realistic_coo", "make_realistic_interactions",
     },
     "polara_tpu.models": {
         "ItemPostFilteringMixin",
     },
     "polara_tpu.ops": {
         "PaddedRows", "inner_product_at", "pad_rows",
-    },
-    "polara_tpu.parallel": {
-        "distributed_chunked_rsvd", "distributed_ials_events",
     },
     "polara_tpu.preprocessing": {
         "dataframes", "matrices",
@@ -42,8 +38,7 @@ UNPORTED = {
     },
     "polara_tpu.runtime": {
         "timed_blocked", "profiler_trace", "enable_compilation_cache",
-        "random_seeds", "key_from_seed", "pad_dim", "array_split",
-        "get_chunk_size", "get_available_memory", "read_npz_from_url",
+        "random_seeds", "key_from_seed",
     },
 }
 

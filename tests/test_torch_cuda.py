@@ -467,3 +467,85 @@ def test_cold_start_topk_on_the_card_is_the_stable_sort():
     scores = model.compute_cold_scores(None).cpu().numpy()
     want = np.argsort(-scores, axis=1, kind="stable")[:, :model.topk]
     np.testing.assert_array_equal(recs, want)
+
+
+def _stream_events(seed=11, m=700, n=300, n_events=20_000):
+    """Zipf-skewed integer events with duplicate pairs (cell sums stay
+    well below 127)."""
+    rs = np.random.RandomState(seed)
+    w = 1.0 / np.arange(1, n + 1) ** 0.9
+    cols = rs.choice(n, size=n_events, p=w / w.sum())
+    rows = rs.randint(0, m, n_events)
+    vals = rs.randint(1, 6, n_events).astype(np.float32)
+    return rows, cols, vals, (m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kw", [
+    ("chunked", dict(event_chunk=997)),
+    ("tiled", dict(event_chunk=1024, tile=8)),
+    ("split", dict(head_items=64, event_chunk=1024, tile=8,
+                   head_block_rows=128)),
+    ("split", dict(head_items=300, head_block_rows=128)),
+])
+def test_streaming_operators_on_the_card_equal_the_cpu(kind, kw):
+    """Integer events and integer panels: every f32 sum is exact, so each
+    streaming operator's ``mm``/``rmm`` on the card equals its CPU result
+    bit for bit, two calls on the card give the same bits, and the int8
+    head built on the card equals the CPU head."""
+    from polara_tpu_torch.ops import sparse as ts
+    device = _cuda()
+    rows, cols, vals, shape = _stream_events()
+    make = getattr(ts, f"{kind}_coo_operator")
+    cpu = make(rows, cols, vals, shape, device="cpu", **kw)
+    card = make(rows, cols, vals, shape, device=device, **kw)
+    rs = np.random.RandomState(3)
+    x = torch.as_tensor(rs.randint(-3, 4, (shape[1], 100)),
+                        dtype=torch.float32)
+    y = torch.as_tensor(rs.randint(-3, 4, (shape[0], 100)),
+                        dtype=torch.float32)
+    for fn in ("mm", "rmm"):
+        arg = x if fn == "mm" else y
+        first = getattr(card, fn)(arg.to(device))
+        assert torch.equal(first, getattr(card, fn)(arg.to(device)))
+        assert torch.equal(first.cpu(), getattr(cpu, fn)(arg))
+    if kind == "split":
+        (d_card, ids_card), (d_cpu, ids_cpu) = (card.operands[0],
+                                                cpu.operands[0])
+        assert d_card.dtype == torch.int8
+        assert torch.equal(d_card.cpu(), d_cpu)
+        assert torch.equal(ids_card.cpu(), ids_cpu)
+
+
+@pytest.mark.cuda
+def test_streaming_builds_on_the_card_are_bit_identical():
+    """Two Krylov builds through the split operator on the card give the
+    same bits (the cuBLAS head product keeps its summation order), and
+    the distributed build on a (4, 1) mesh of the card spans the
+    single-device one (the same start and steps, other f32 order: a sine
+    of 3.4e-6 on the CPU)."""
+    from polara_tpu_torch.ops import sparse as ts
+    from polara_tpu_torch.ops.rsvd import (principal_angles_max_sin,
+                                           randomized_svd,
+                                           randomized_svd_krylov)
+    from polara_tpu_torch.parallel import distributed_chunked_rsvd
+    from polara_tpu_torch.runtime.mesh import make_mesh
+    device = _cuda()
+    rows, cols, vals, shape = _stream_events()
+    op = ts.split_coo_operator(rows, cols, vals, shape, head_items=64,
+                               event_chunk=1024, tile=8, device=device)
+    first = randomized_svd_krylov(op, 8, depth=3, seed=0)
+    second = randomized_svd_krylov(op, 8, depth=3, seed=0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    mesh = make_mesh(devices=[device] * 4, shape=(4, 1))
+    meshed = distributed_chunked_rsvd(rows, cols, vals, shape, 8, mesh,
+                                      n_iter=20, seed=0, split_head=True,
+                                      head_items=64, head_block_rows=128,
+                                      event_chunk=997)
+    single = randomized_svd(op, 8, n_iter=20, tol=None, seed=0,
+                            qr_method="cholesky2")
+    np.testing.assert_allclose(meshed.s.cpu().numpy(),
+                               single.s.cpu().numpy(), rtol=1e-4)
+    # the sine in f64: in f32, sqrt(1 - cos²) bottoms out near 3e-4
+    assert principal_angles_max_sin(meshed.v.double(),
+                                    single.v.double()) < 1e-4

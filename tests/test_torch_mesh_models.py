@@ -206,15 +206,32 @@ def test_mesh_change_replans_the_test_chunks():
 
 def test_mesh_beyond_budget_raises_instead_of_another_route():
     """Past the memory budget even for the COO products, the mesh build
-    needs the event-sharded streaming rSVD, not ported yet: it raises."""
+    takes the event-sharded streaming rSVD (``distributed_chunked_rsvd``,
+    which it raised for until that was ported), never a dense or COO
+    route: f64, 8 iterations from the same start as the single-device
+    streaming build, so the singular values agree to 1e-10 relative, the
+    item spans to a sine of 1e-6, and the recommendations id for id."""
     tdata = _data(TorchData, **GEOMETRIES["divisible"])
     saved = tconfig.get_default("hbm_score_budget_gb")
     tconfig.set_default("hbm_score_budget_gb", 1e-7)
     try:
-        with pytest.raises(NotImplementedError, match="A12"):
-            _model(SVDModel, tdata, mesh=MESH).build()
+        meshed = _model(SVDModel, tdata, mesh=MESH, svd_tol=None,
+                        svd_iters=8)
+        single = _model(SVDModel, tdata, svd_tol=None, svd_iters=8)
+        meshed.build()
+        single.build()
     finally:
         tconfig.set_default("hbm_score_budget_gb", saved)
+    # scored under the default budget (1e-7 GiB holds no score row)
+    want, got = single.recommendations, meshed.recommendations
+    np.testing.assert_allclose(meshed.factors["singular_values"].numpy(),
+                               single.factors["singular_values"].numpy(),
+                               rtol=1e-10)
+    assert principal_angles_max_sin(_item_factors(meshed),
+                                    _item_factors(single)) < 1e-6
+    np.testing.assert_array_equal(got, want)
+    assert not any(isinstance(key, tuple) and key[:1] == ("svd_dense",)
+                   for key in tdata._device_matrix_cache)
 
 
 def test_cv_experiment_under_mesh_matches_single_device():
@@ -235,18 +252,25 @@ def test_cv_experiment_under_mesh_matches_single_device():
                                dist.values.astype(float), atol=1e-9)
 
 
-def test_mesh_of_repeated_entries_budgets_for_one_device():
+def test_mesh_of_repeated_entries_budgets_for_one_device(monkeypatch):
     """Eight ``cpu`` entries hold the sharded block on one device: a dense
     block over that device's budget takes no dense mesh route, although
     it fits eight times the budget; past the COO products' budget too,
-    the build raises."""
+    the build streams the events over the mesh
+    (``distributed_chunked_rsvd``, once)."""
+    import polara_tpu_torch.models.svd as tsvd_module
+    calls = []
+    streamed = tsvd_module.distributed_chunked_rsvd
+    monkeypatch.setattr(tsvd_module, "distributed_chunked_rsvd",
+                        lambda *a, **k: calls.append(1) or streamed(*a, **k))
     tdata = _data(TorchData, **GEOMETRIES["divisible"])
     dense_bytes = 240 * 120 * 8
     saved = tconfig.get_default("hbm_score_budget_gb")
     tconfig.set_default("hbm_score_budget_gb", dense_bytes / 2 / 2 ** 30)
     try:
-        with pytest.raises(NotImplementedError, match="A12"):
-            _model(SVDModel, tdata, mesh=MESH).build()
+        _model(SVDModel, tdata, mesh=MESH, svd_tol=None,
+               svd_iters=4).build()
+        assert calls == [1]
         assert not any(isinstance(key, tuple) and key[:1] == ("svd_dense",)
                        for key in tdata._device_matrix_cache)
     finally:

@@ -15,7 +15,11 @@ IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
            "polara_tpu_torch.runtime.mesh, polara_tpu_torch.parallel, "
            "polara_tpu_torch.evaluation.plotting, "
            "polara_tpu_torch.ops.cholesky, polara_tpu_torch.models.hybrid, "
-           "polara_tpu_torch.models.coldstart")
+           "polara_tpu_torch.models.coldstart, polara_tpu_torch.ops.sparse, "
+           "polara_tpu_torch.parallel.distributed, "
+           "polara_tpu_torch.models.implicit_mf, "
+           "polara_tpu_torch.runtime.memory, "
+           "polara_tpu_torch.datasets.synthetic")
 # the pandas tier: the data model, the experiment pipelines and the
 # feature encoders
 PANDAS_TIER = ("import polara_tpu_torch.data, "
