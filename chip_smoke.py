@@ -159,7 +159,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
    shape with its bound, cuBLAS scores and ``torch.topk`` route at the
    scoring plan's chunk, the exact reference, the dense route, peak memory.
 
-pandas is required (phases 4-11): without it the script exits non-zero
+12. The evaluation protocols.  (a) ``LongTailMixin`` at ML-10M geometry
+   (phase 3's data; ``long_tail_holdout``, ``head_feedback_frac`` 0.33,
+   ``warm_start=False``, 20% test users, one top-rated held-out event
+   each): PureSVD rank 50 through the kernel.  (b) On that split and
+   those factors, ``SampledEvaluationSVDMixin`` with 999 unseen items per
+   test user, registered from ``sample_row_wise`` and drawn on the fly by
+   ``sampled_scores``.  (c) At ML-1M geometry, ``ml-1m.zip`` written and
+   read back through ``get_movielens_data``; the EigenRec protocol of
+   ``benchmarks/quality_ml1m.py:153-213`` (random 5-star holdouts,
+   ``sample_unseen_interactions`` n_random 999, ScaledSVD rank 50 at
+   ``col_scaling`` 1.0 and 0.5); contextual post-filtering by each event's
+   first genre (``ItemPostFilteringData``, ``SVDModel`` rank 50 beside
+   ``ItemPostFilteringMixin`` + ``SVDModel``).  Gates: every holdout item
+   outside the short head (numpy, from the log); the kernel ran, ids in
+   range, ``fused_ok``, HR@10 above popularity's; no sampled item seen or
+   repeated (both routes, on the card); each registered rank equals the
+   f64 count of candidates above the holdout (near ties excluded and
+   counted); the routes' MRR@10 within 0.03; two fold-ins and two
+   on-the-fly runs bit-identical; the sampled route and the contextual
+   model launch no kernel, the plain model does; the loader's frames
+   equal what was written; 999 candidates per user and MRR in (0, 1] for
+   each scaling (whether 0.5 beats 1.0 is printed, not gated); the
+   contextual picks lead with unseen upvoted items in descending
+   unboosted score, no seen item, and HR@10 above the plain model's.
+   Times: ``prepare()``, the build and the scoring, ``sample_row_wise``,
+   ``sampled_scores``, ``inner_product_at``, the loader's read, unfused
+   contextual vs fused plain scoring, peak memory.
+
+pandas is required (phases 4-12): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -169,7 +197,7 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-11;
+and then the score kernel, and ``launches_by_path`` those of phases 3-12;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
 ``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
 shape, ``serving_batch`` at one serving batch, ``hybrid_scoring`` at
@@ -2405,13 +2433,11 @@ def synthetic_similarity(n_items, device, seed=0):
     return sim.fill_diagonal_(1.0)
 
 
-def synthetic_genres(item_ids):
-    """Genre lists per item: 19 labels, 1-3 per item, Zipf-skewed
-    (``numpy.random.RandomState(0)``), written as MovieLens's
-    ``|``-joined genre strings and read back through
-    ``get_split_genres``; a one-column frame indexed by item id."""
+def synthetic_movies(item_ids):
+    """MovieLens's ``movieid/movienm/genres`` frame for ``item_ids``: 19
+    genre labels, 1-3 per item, Zipf-skewed
+    (``numpy.random.RandomState(0)``), ``|``-joined as in ``movies.dat``."""
     import pandas as pd
-    from polara_tpu_torch.datasets import get_split_genres
     rs = np.random.RandomState(0)
     weights = 1.0 / np.arange(1, N_GENRES + 1)
     weights /= weights.sum()
@@ -2419,11 +2445,19 @@ def synthetic_genres(item_ids):
     genres = ["|".join(names[np.sort(rs.choice(N_GENRES, n, replace=False,
                                                p=weights))])
               for n in rs.randint(1, 4, len(item_ids))]
-    movies = pd.DataFrame({"movieid": item_ids,
-                           "movienm": [f"movie {i}" for i in item_ids],
-                           "genres": genres})
-    lists = get_split_genres(movies).groupby("movieid", sort=False)[
-        "genreid"].agg(list)
+    return pd.DataFrame({"movieid": item_ids,
+                         "movienm": [f"movie {i}" for i in item_ids],
+                         "genres": genres})
+
+
+def synthetic_genres(item_ids):
+    """Genre lists per item (:func:`synthetic_movies`' strings read back
+    through ``get_split_genres``); a one-column frame indexed by item
+    id."""
+    import pandas as pd
+    from polara_tpu_torch.datasets import get_split_genres
+    lists = get_split_genres(synthetic_movies(item_ids)).groupby(
+        "movieid", sort=False)["genreid"].agg(list)
     return pd.DataFrame({"genres": lists}).reindex(item_ids)
 
 
@@ -3318,6 +3352,469 @@ def streaming_phase(geometry, ials_geometry, device="cuda",
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: the evaluation protocols
+# --------------------------------------------------------------------------
+
+HEAD_FEEDBACK_FRAC = 0.33    # LongTailMixin's default short head
+N_UNSEEN = 999               # EigenRec's sampled candidates per user
+EIGENREC_SCALINGS = (1.0, 0.5)
+NEAR_TIE_RTOL = 1e-5         # registered ranks: near-tied users excluded
+
+
+def protocol_classes():
+    """Phase 12's data and model classes: the port's protocol mixins over
+    its data model and SVD models."""
+    from types import SimpleNamespace
+    from polara_tpu_torch.data import (ItemPostFilteringData, LongTailMixin,
+                                       RecommenderData,
+                                       SampledEvaluationMixin)
+    from polara_tpu_torch.models import (ItemPostFilteringMixin, ScaledSVD,
+                                         SVDModel)
+    from polara_tpu_torch.models.sampled import SampledEvaluationSVDMixin
+
+    class LongTailSampledData(SampledEvaluationMixin, LongTailMixin,
+                              RecommenderData):
+        pass
+
+    class SampledData(SampledEvaluationMixin, RecommenderData):
+        pass
+
+    class SampledSVD(SampledEvaluationSVDMixin, SVDModel):
+        pass
+
+    class SampledScaledSVD(SampledEvaluationSVDMixin, ScaledSVD):
+        pass
+
+    class ContextualSVD(ItemPostFilteringMixin, SVDModel):
+        pass
+
+    return SimpleNamespace(
+        LongTailSampledData=LongTailSampledData, SampledData=SampledData,
+        ItemPostFilteringData=ItemPostFilteringData, SVDModel=SVDModel,
+        SampledSVD=SampledSVD, SampledScaledSVD=SampledScaledSVD,
+        ContextualSVD=ContextualSVD)
+
+
+def short_head_boundary(items: np.ndarray, frac: float):
+    """Item counts of the log and the count of its first long-tail item
+    recomputed in numpy: items in descending count order, the tail starts
+    where the cumulative share passes ``frac``.  Items counted above that
+    count are short head in every tie order."""
+    counts = np.bincount(items)
+    ordered = np.sort(counts)[::-1]
+    share = np.cumsum(ordered) / ordered.sum()
+    return counts, int(ordered[np.searchsorted(share, frac, side="right")])
+
+
+def seen_mask(n_rows, n_items, parts, device):
+    """(rows x items) bool mask on the card of the given (row, col) pairs."""
+    import torch
+    mask = torch.zeros((n_rows, n_items), dtype=torch.bool, device=device)
+    for rows, cols in parts:
+        mask[torch.as_tensor(np.array(rows, np.int64), device=device),
+             torch.as_tensor(np.array(cols, np.int64), device=device)] = True
+    return mask
+
+
+def long_tail_part(geometry, device, classes, out):
+    """Phase 12 (a): PureSVD on the long-tail holdout at ``geometry``,
+    scored through the kernel.  Returns the data and the model."""
+    import torch
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.models import PopularityModel
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
+                                                    device=device))
+    t0 = wall()
+    data = classes.LongTailSampledData(
+        frame, "userid", "movieid", "rating", seed=0, verbose=False,
+        long_tail_holdout=True, head_feedback_frac=HEAD_FEEDBACK_FRAC)
+    data.warm_start = False
+    data.test_ratio = 0.2
+    data.holdout_size = 1
+    data.prepare()
+    out["prepare_s"] = wall() - t0
+    out["holdout_path"] = data.holdout_path
+    hold = data.test.holdout
+    n_items = len(data.get_entity_index("movieid"))
+    out["test_users"] = len(hold)
+    item_old = data.get_entity_index("movieid").set_index("new")["old"]
+    counts, boundary = short_head_boundary(frame["movieid"].to_numpy(),
+                                           HEAD_FEEDBACK_FRAC)
+    held = counts[item_old.loc[hold["movieid"]].to_numpy()]
+    out["short_head_items"] = int((counts > boundary).sum())
+    out["boundary_count"] = boundary
+    check(bool((held <= boundary).all()),
+          f"all {len(hold)} holdout items lie outside the short head "
+          f"({out['short_head_items']} items above {boundary} events, "
+          f"recomputed in numpy from the log)")
+    log(f"  long tail: prepare() {out['prepare_s']:.2f} s "
+        f"({data.holdout_path} holdout path), {len(hold)} test users")
+
+    svd = classes.SVDModel(data, device=device)
+    svd.verbose = False
+    svd.rank = RANK
+    t0 = wall()
+    svd.build()
+    out["build_s"] = wall() - t0
+    fused_score_topk.launches = 0
+    t0 = wall()
+    recs = svd._device_recommendations()
+    out["scoring_s"] = wall() - t0
+    scores = svd.evaluate(["relevance", "ranking"])
+    out["launches"] = fused_score_topk.launches
+    with Timer() as t:
+        svd.get_recommendations()
+    out["scoring_warm_ms"] = t.seconds * 1e3
+    svd.verify_integrity = False     # the host's check of the frames
+    with Timer() as t:
+        svd.get_recommendations()
+    out["scoring_warm_unverified_ms"] = t.seconds * 1e3
+    svd.verify_integrity = True
+    out["hr10"], out["mrr10"] = float(scores[0].hr), float(scores[1].mrr)
+    check(out["launches"] > 0, f"the long-tail PureSVD launched the kernel "
+          f"({out['launches']}x)")
+    check(bool(((recs >= 0) & (recs < n_items)).all()),
+          "long-tail ids in range")
+    plan, params = svd._test_plan, svd.score_params()
+    proj = classes.SVDModel.proj_chunk(params, plan.chunks[0])
+    out["fused_gap"] = _fused_gap(plan, proj, params["item_panel"], recs,
+                                  n_items)
+    check(out["fused_gap"] < 1e-3, f"long-tail fused_ok: re-scored gap "
+          f"{out['fused_gap']:.2e} < 1e-3")
+    pop = PopularityModel(data, device=device)
+    pop.verbose = False
+    out["popularity_hr10"] = float(pop.evaluate("relevance").hr)
+    check(out["hr10"] > out["popularity_hr10"],
+          f"long-tail HR@{TOPK} {out['hr10']:.5f} > popularity's "
+          f"{out['popularity_hr10']:.5f}")
+    log(f"  long-tail PureSVD-{RANK}: build {out['build_s']:.3f} s, scoring "
+        f"{out['scoring_s']:.3f} s (warm {out['scoring_warm_ms']:.2f} ms, "
+        f"{out['scoring_warm_unverified_ms']:.2f} ms without the integrity "
+        f"check), "
+        f"HR@{TOPK} {out['hr10']:.5f} MRR@{TOPK} {out['mrr10']:.5f}")
+    del recs, proj, pop
+    return data, svd
+
+
+def sampled_part(data, svd, device, classes, out):
+    """Phase 12 (b): the sampled-candidate protocol on (a)'s split and
+    factors, by registered lists and by on-the-fly samples."""
+    import pandas as pd
+    import torch
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.ops.samplers import (sample_row_wise,
+                                               sampled_scores)
+    from polara_tpu_torch.ops.sparse import (inner_product_at,
+                                             sorted_rows_matmul)
+    from polara_tpu_torch.runtime.rng import generator_from_seed
+
+    model = classes.SampledSVD(data, device=device)
+    model.verbose = False
+    model.rank = RANK
+    model.set_factors(svd.factors)
+    hold = data.test.holdout
+    (rows, cols, fb), (n_test, n_items), test_users = model._get_test_data()
+    check(np.array_equal(hold["userid"].to_numpy(), test_users),
+          "holdout rows align with the fold-in's test rows")
+    hold_rows = np.arange(n_test)
+    hold_items = hold["movieid"].to_numpy()
+    train = data.training
+    in_test = train["userid"].isin(test_users).to_numpy()
+    train_rows = np.searchsorted(test_users,
+                                 train["userid"].to_numpy()[in_test])
+    seen = seen_mask(n_test, n_items, [
+        (rows, cols), (hold_rows, hold_items),
+        (train_rows, train["movieid"].to_numpy()[in_test])], device)
+
+    def clean(items, what):
+        sorted_items = torch.sort(items.long(), 1).values
+        check(not bool(seen.gather(1, items.long()).any())
+              and bool((sorted_items[:, 1:] != sorted_items[:, :-1]).all()),
+              f"{what}: no sampled item is in a user's training profile, "
+              f"test profile or holdout, and no row repeats an item "
+              f"({n_test} users x {items.shape[1]}, checked on the card)")
+
+    # ---- registered lists from sample_row_wise, seeded apart from the
+    # data's seed (the on-the-fly route's), so the two routes are two
+    # independent samples of the protocol
+    t0 = wall()
+    lists = sample_row_wise(np.concatenate([rows, hold_rows]),
+                            np.concatenate([cols, hold_items]), n_test,
+                            n_items, N_UNSEEN, seed=data.seed + 1,
+                            device=device)
+    out["sample_row_wise_s"] = wall() - t0
+    lists_d = torch.as_tensor(lists, device=device)
+    clean(lists_d, "sample_row_wise")
+    data.set_unseen_interactions(pd.Series(list(lists), index=test_users),
+                                 reindex=False)
+    model.topk = N_UNSEEN + 1
+    fused_score_topk.launches = 0
+    t0 = wall()
+    recs = model._device_recommendations()
+    out["registered_scoring_s"] = wall() - t0
+    out["registered_mrr10"] = float(model.evaluate("ranking", topk=TOPK).mrr)
+    out["launches"] = fused_score_topk.launches
+    rank = (recs == 0).int().argmax(1)
+    # the holdout's rank against the f64 count of candidates above it
+    v64 = model.factors["movieid"].double()
+    p64 = sorted_rows_matmul(
+        torch.as_tensor(rows, device=device).long(),
+        torch.as_tensor(cols, device=device).long(),
+        torch.as_tensor(np.asarray(fb, np.float64), device=device), v64,
+        n_test)
+    users = torch.arange(n_test, device=device)[:, None]
+    hold64 = inner_product_at(p64, v64, users,
+                              torch.as_tensor(np.array(hold_items), device=device
+                                              )[:, None])
+    cand64 = inner_product_at(p64, v64, users, lists_d)
+    near = ((cand64 - hold64).abs()
+            <= NEAR_TIE_RTOL * hold64.abs()).any(1)
+    above = (cand64 > hold64).sum(1)
+    out["near_tie_users"] = int(near.sum())
+    out["registered_full_mrr"] = (1.0 / (rank.double() + 1)).mean().item()
+    check(bool((rank == above)[~near].all()),
+          f"registered route: every user's holdout rank equals the f64 "
+          f"count of candidates above it ({out['near_tie_users']} users "
+          f"with a candidate within {NEAR_TIE_RTOL} relative excluded)")
+    uf, vf, pairs = model._test_user_factors()
+    ui = torch.arange(n_test)[:, None]
+    out["inner_product_at_ms"] = time_ms(
+        lambda: inner_product_at(uf, vf, ui, lists_d), 3)
+    del cand64, hold64, p64, v64, recs
+
+    # ---- on-the-fly samples from the data's seed
+    data.unseen_interactions = None
+    data.unseen_items_num = N_UNSEEN
+    model._recommendations = None
+    t0 = wall()
+    model._device_recommendations()
+    out["on_the_fly_scoring_s"] = wall() - t0
+    out["on_the_fly_mrr10"] = float(model.evaluate("ranking",
+                                                   topk=TOPK).mrr)
+    out["launches"] += fused_score_topk.launches
+    uf2, _, _ = model._test_user_factors()
+    check(torch.equal(uf, uf2), "two fold-ins give identical bits")
+    first = model.compute_random_item_scores_gen(uf, vf, pairs, N_UNSEEN)
+    with Timer() as t:
+        second = model.compute_random_item_scores_gen(uf, vf, pairs,
+                                                      N_UNSEEN)
+    out["sampled_scores_ms"] = t.seconds * 1e3
+    check(torch.equal(first, second),
+          "two on-the-fly runs from the same seed give identical scores")
+    seen_rows = np.concatenate([pairs[0], hold_rows])
+    seen_cols = np.concatenate([pairs[1], hold_items])
+    again, items = sampled_scores(
+        uf, vf, torch.as_tensor(seen_rows), torch.as_tensor(seen_cols),
+        torch.ones(len(seen_rows), dtype=torch.bool),
+        generator_from_seed(data.seed, device), N_UNSEEN, return_items=True)
+    check(torch.equal(again, first), "sampled_scores with return_items "
+          "draws the model's candidates")
+    clean(items, "sampled_scores")
+    out["mrr_gap"] = abs(out["registered_mrr10"] - out["on_the_fly_mrr10"])
+    check(out["mrr_gap"] < 0.03, f"registered MRR@{TOPK} "
+          f"{out['registered_mrr10']:.5f} and on-the-fly "
+          f"{out['on_the_fly_mrr10']:.5f} agree within 0.03")
+    check(out["launches"] == 0, "the sampled protocol took no kernel "
+          "launch (candidates differ per user)")
+    log(f"  sampled: sample_row_wise {out['sample_row_wise_s']:.3f} s, "
+        f"inner_product_at {out['inner_product_at_ms']:.2f} ms, one "
+        f"sampled_scores {out['sampled_scores_ms']:.2f} ms; MRR@{TOPK} "
+        f"registered {out['registered_mrr10']:.5f}, on the fly "
+        f"{out['on_the_fly_mrr10']:.5f}")
+    del seen, lists_d, first, second, again, items
+
+
+def write_movielens_zip(path, events, movies):
+    """``ml-1m.zip`` in MovieLens's legacy layout: ``ml-1m/ratings.dat``
+    (``UserID::MovieID::Rating::Timestamp``) and ``ml-1m/movies.dat``
+    (``MovieID::Title::Genres``)."""
+    import io
+    import zipfile
+    table = np.stack([events["userid"].to_numpy(),
+                      events["movieid"].to_numpy(),
+                      events["rating"].to_numpy(),
+                      956_703_932 + np.arange(len(events))], 1)
+    ratings = io.BytesIO()
+    np.savetxt(ratings, table, fmt="%d::%d::%d::%d")
+    lines = (movies["movieid"].astype(str) + "::" + movies["movienm"]
+             + "::" + movies["genres"])
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("ml-1m/ratings.dat", ratings.getvalue())
+        zf.writestr("ml-1m/movies.dat", "\n".join(lines) + "\n")
+
+
+def movielens_part(geometry, device, classes, out):
+    """Phase 12 (c): ML-1M geometry through the MovieLens loader, the
+    EigenRec protocol at its published configuration, and contextual
+    post-filtering by genre."""
+    import os
+    import tempfile
+    import torch
+    from polara_tpu_torch.datasets import (get_movielens_data,
+                                           get_split_genres,
+                                           make_realistic_interactions)
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    from polara_tpu_torch.ops.scoring import run_scores_only
+    from polara_tpu_torch.preprocessing.dataframes import \
+        sample_unseen_interactions
+
+    events = make_realistic_interactions(**geometry, seed=0)
+    movies = synthetic_movies(np.sort(events["movieid"].unique()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ml-1m.zip")
+        write_movielens_zip(path, events, movies)
+        t0 = time.perf_counter()
+        ratings, genres = get_movielens_data(local_file=path,
+                                             get_genres=True)
+        out["loader_read_s"] = time.perf_counter() - t0
+    check(all(np.array_equal(ratings[c].to_numpy(), events[c].to_numpy())
+              for c in ("userid", "movieid", "rating"))
+          and genres.equals(get_split_genres(movies)),
+          f"get_movielens_data reads back the {len(ratings)} ratings and "
+          f"{len(genres)} genre rows written")
+
+    # ---- EigenRec (benchmarks/quality_ml1m.py:153-213)
+    data = classes.SampledData(ratings.copy(), "userid", "movieid",
+                               "rating", seed=0, verbose=False)
+    data.warm_start = False
+    data.test_ratio = 0
+    data.holdout_size = 1
+    data.random_holdout = True
+    data.prepare()
+    data.set_test_data(holdout=data.test.holdout.query("rating == 5"),
+                       warm_start=False, reindex=False,
+                       ensure_consistency=False, holdout_size=1)
+    item_pool = data.get_entity_index("movieid")["old"].values
+    t0 = time.perf_counter()
+    unseen = sample_unseen_interactions(ratings, item_pool,
+                                        n_random=N_UNSEEN, random_state=0,
+                                        userid="userid", itemid="movieid")
+    out["sample_unseen_s"] = time.perf_counter() - t0
+    data.set_unseen_interactions(unseen, reindex=True)
+    check(data.unseen_items_num == N_UNSEEN
+          and bool(data.unseen_interactions.apply(len).eq(N_UNSEEN).all()),
+          f"{N_UNSEEN} unseen items registered per user")
+    out["eigenrec_users"] = int(data.test.holdout["userid"].nunique())
+    out["eigenrec_mrr"] = {}
+    for scaling in EIGENREC_SCALINGS:
+        model = classes.SampledScaledSVD(data, device=device)
+        model.verbose = False
+        model.rank = RANK
+        model.col_scaling = scaling
+        mrr = float(model.evaluate("ranking", simple_rates=True).mrr)
+        out["eigenrec_mrr"][str(scaling)] = mrr
+        check(np.isfinite(mrr) and 0 < mrr <= 1,
+              f"EigenRec col_scaling {scaling}: MRR {mrr:.5f} in (0, 1]")
+    out["eigenrec_scaling_improves"] = (out["eigenrec_mrr"]["0.5"]
+                                        > out["eigenrec_mrr"]["1.0"])
+    log(f"  EigenRec at ML-1M geometry ({out['eigenrec_users']} 5-star "
+        f"holdouts x {N_UNSEEN} candidates): MRR {out['eigenrec_mrr']}; "
+        f"col_scaling 0.5 beats 1.0: {out['eigenrec_scaling_improves']} "
+        f"(recorded, not gated)")
+    del data, model
+
+    # ---- contextual post-filtering by genre
+    first = movies.set_index("movieid")["genres"].str.split("|").str[0]
+    frame = ratings.assign(genre=first.loc[ratings["movieid"]].to_numpy())
+    mapping = genres.rename(columns={"genreid": "genre"})[["movieid",
+                                                           "genre"]]
+    t0 = time.perf_counter()
+    data = classes.ItemPostFilteringData(
+        frame, "userid", "movieid", "rating",
+        item_context_mapping={"genre": mapping}, seed=0, verbose=False)
+    data.warm_start = False
+    data.test_ratio = 0.2
+    data.holdout_size = 1
+    data.prepare()
+    out["contextual_prepare_s"] = time.perf_counter() - t0
+    models = {}
+    for name, cls in (("plain", classes.SVDModel),
+                      ("contextual", classes.ContextualSVD)):
+        model = models[name] = cls(data, device=device)
+        model.verbose = False
+        model.rank = RANK
+        model.build()
+        fused_score_topk.launches = 0
+        out[f"{name}_hr10"] = float(model.evaluate("relevance").hr)
+        out[f"{name}_launches"] = fused_score_topk.launches
+        with Timer() as t:
+            model.get_recommendations()
+        out[f"{name}_scoring_warm_ms"] = t.seconds * 1e3
+    t0 = time.perf_counter()
+    data.upvote_arrays()
+    out["upvote_arrays_ms"] = (time.perf_counter() - t0) * 1e3
+    check(out["plain_launches"] > 0 and out["contextual_launches"] == 0,
+          f"the plain SVD launched the kernel ({out['plain_launches']}x), "
+          f"the contextual one none ({out['contextual_launches']}x)")
+    model = models["contextual"]
+    check(not model.uses_fused_scoring(model.score_params()),
+          "the contextual model routes to the unfused path")
+    recs = model._device_recommendations().long()
+    n_test, n_items = recs.shape[0], len(data.get_entity_index("movieid"))
+    check(bool(((recs >= 0) & (recs < n_items)).all()),
+          "contextual ids in range")
+    items, valid = data.upvote_arrays()
+    row_ids = np.broadcast_to(np.arange(n_test)[:, None], items.shape)
+    upvoted = seen_mask(n_test, n_items, [(row_ids[valid], items[valid])],
+                        device)
+    (rows, cols, _), _, _ = model._get_test_data()
+    seen = seen_mask(n_test, n_items, [(rows, cols)], device)
+    scores = torch.as_tensor(run_scores_only(
+        model._test_plan, classes.SVDModel.score_chunk,
+        model.score_params()), device=device)
+    lead = torch.clamp((upvoted & ~seen).sum(1), max=TOPK)
+    in_lead = torch.arange(TOPK, device=device)[None, :] < lead[:, None]
+    picked = scores.gather(1, recs)
+    tol = 4 * 2.0 ** -23 * (2 * scores.abs().max() + 1)
+    check(bool((upvoted.gather(1, recs) | ~in_lead).all()),
+          "the first min(10, unseen upvoted) picks are upvoted items")
+    check(bool(((picked[:, 1:] <= picked[:, :-1] + tol)
+                | ~in_lead[:, 1:]).all()),
+          "upvoted picks come in descending order of their unboosted "
+          "scores (ties within 4 ulp of the boosted scale aside)")
+    check(not bool(seen.gather(1, recs).any()), "no seen item is picked")
+    check(out["contextual_hr10"] > out["plain_hr10"],
+          f"contextual HR@{TOPK} {out['contextual_hr10']:.5f} > the plain "
+          f"model's {out['plain_hr10']:.5f}")
+    log(f"  contextual: HR@{TOPK} {out['contextual_hr10']:.5f} vs plain "
+        f"{out['plain_hr10']:.5f}; warm scoring unfused "
+        f"{out['contextual_scoring_warm_ms']:.2f} ms (upvote_arrays "
+        f"{out['upvote_arrays_ms']:.2f} ms on the host) vs fused "
+        f"{out['plain_scoring_warm_ms']:.2f} ms")
+
+
+def protocols_phase(geometry, small_geometry, device="cuda"):
+    """Phase 12: the long-tail holdout at ``geometry`` (PureSVD through the
+    kernel), the sampled-candidate protocol on its split and factors, and,
+    at ``small_geometry`` through the MovieLens loader, EigenRec and
+    contextual post-filtering.  Returns the measured fields; raises on a
+    failed gate except the launch counts the caller checks."""
+    import torch
+    t_phase = wall()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    classes = protocol_classes()
+    out = {"long_tail": {}, "sampled": {}, "movielens": {}}
+    data, svd = long_tail_part(geometry, device, classes, out["long_tail"])
+    sampled_part(data, svd, device, classes, out["sampled"])
+    del data, svd
+    gc.collect()
+    movielens_part(small_geometry, device, classes, out["movielens"])
+    out["launches"] = {"long_tail": out["long_tail"]["launches"],
+                       "sampled": out["sampled"]["launches"],
+                       "contextual_plain": out["movielens"]["plain_launches"],
+                       "contextual": out["movielens"]["contextual_launches"]}
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -3371,7 +3868,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-11) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-12) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import (ML1M_GEOMETRY, ML10M_GEOMETRY,
@@ -3531,6 +4028,26 @@ def main() -> int:
         f"{stream['peak_mem_gib']:.2f} GiB")
     log("  " + json.dumps({"stream": stream}))
 
+    log("phase 12: the evaluation protocols: long-tail PureSVD at ML-10M "
+        "geometry through the kernel, sampled-candidate evaluation on its "
+        "split (registered and on the fly); ML-1M geometry through the "
+        "MovieLens loader: EigenRec and contextual post-filtering")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    protocols = protocols_phase(ML10M_GEOMETRY, ML1M_GEOMETRY)
+    for name in ("long_tail", "contextual_plain"):
+        check(protocols["launches"][name] > 0,
+              f"{name} launched the kernel "
+              f"({protocols['launches'][name]}x)")
+    for name in ("sampled", "contextual"):
+        check(protocols["launches"][name] == 0,
+              f"{name} launched no kernel "
+              f"({protocols['launches'][name]}x)")
+    log(f"  phase 12: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{protocols['peak_mem_gib']:.2f} GiB; times on {card}")
+    log("  " + json.dumps({"protocols": protocols}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -3580,7 +4097,9 @@ def main() -> int:
                              "stream_mesh": stream["launches"]["mesh"],
                              "stream_ials": (
                                  stream["launches"]["ials_mesh"]
-                                 + stream["launches"]["ials_single"])},
+                                 + stream["launches"]["ials_single"]),
+                             "protocols": sum(
+                                 protocols["launches"].values())},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,

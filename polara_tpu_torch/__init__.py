@@ -2,9 +2,10 @@
 
 Mirrors the JAX package's module layout and names.  The device tier
 (``ops``, ``models``, ``evaluation``, ``runtime``, ``datasets``) imports
-torch and numpy only; the pandas data tier (``data``) loads on first use
-of :class:`RecommenderData`, so importing this package loads neither
-pandas nor jax.
+torch and numpy only (the dataset loaders import pandas when called); the
+pandas data tier (``data``) loads on first use of
+:class:`RecommenderData`, so importing this package loads neither pandas
+nor jax.
 """
 
 __version__ = "0.1.0"
@@ -17,6 +18,10 @@ _LAZY = {
     "PopularityModel": "polara_tpu_torch.models",
     "RandomModel": "polara_tpu_torch.models",
     "CooccurrenceModel": "polara_tpu_torch.models",
+    "get_movielens_data": "polara_tpu_torch.datasets",
+    "get_netflix_data": "polara_tpu_torch.datasets",
+    "get_bookcrossing_data": "polara_tpu_torch.datasets",
+    "get_amazon_data": "polara_tpu_torch.datasets",
 }
 
 __all__ = sorted(_LAZY)

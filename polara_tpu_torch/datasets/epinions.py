@@ -1,10 +1,10 @@
-"""Graph Laplacian of an entity relation (host copy of
-:mod:`polara_tpu.datasets.epinions`'s ``compute_graph_laplacian``; the
-Epinions loader is not ported yet).
+"""Epinions loader and the graph Laplacian of an entity relation (host
+copy of :mod:`polara_tpu.datasets.epinions`; reference
+``polara/datasets/epinions.py:6-51``).
 
 The Laplacian feeds the kernelized PMF model
 (:class:`polara_tpu_torch.models.hybrid.KernelizedPMF`) through a side
-relations data model.  scipy loads on the first call.
+relations data model.  pandas and scipy load on the first call.
 """
 from __future__ import annotations
 
@@ -41,3 +41,23 @@ def compute_graph_laplacian(edges, index):
                               shape=(n, n))
     assert (adjacency.diagonal() == 0).all()
     return graph_laplacian(adjacency).tocsr(), adjacency
+
+
+def get_epinions_data(ratings_path=None, trust_data_path=None):
+    """Load the whitespace-separated ratings table and/or trust edges."""
+    import pandas as pd
+
+    res = []
+    if ratings_path:
+        ratings = pd.read_csv(ratings_path, sep=r"\s+", skiprows=[0],
+                              skipfooter=1, engine="python", header=None,
+                              skipinitialspace=True,
+                              names=["user", "film", "rating"],
+                              usecols=["user", "film", "rating"])
+        res.append(ratings)
+    if trust_data_path:
+        edges = pd.read_table(trust_data_path, sep=r"\s+", skiprows=[0],
+                              skipfooter=1, engine="python", header=None,
+                              skipinitialspace=True, usecols=[0, 1])
+        res.append(edges)
+    return res[0] if len(res) == 1 else res

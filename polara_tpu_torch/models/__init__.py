@@ -7,6 +7,7 @@ from polara_tpu_torch.models.coldstart import (
     PopularityModelItemColdStart, RandomModelItemColdStart,
     ScaledHybridSVDItemColdStart, ScaledSVDItemColdStart,
     SimilarityAggregationItemColdStart, SVDModelItemColdStart)
+from polara_tpu_torch.models.contextual import ItemPostFilteringMixin
 from polara_tpu_torch.models.hybrid import (HybridSVD, KernelizedPMF,
                                             LCEModel, ScaledHybridSVD,
                                             SimilarityAggregation)
@@ -24,4 +25,4 @@ __all__ = ["RecommenderModel", "EmbeddingsMixin", "PopularityModel",
            "SimilarityAggregationItemColdStart", "SVDModelItemColdStart",
            "HybridSVDItemColdStart", "ScaledSVDItemColdStart",
            "ScaledHybridSVDItemColdStart", "LCEModelItemColdStart",
-           "ImplicitALS", "ImplicitBPR"]
+           "ItemPostFilteringMixin", "ImplicitALS", "ImplicitBPR"]

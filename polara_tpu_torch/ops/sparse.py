@@ -831,3 +831,81 @@ def split_coo_operator(rows: ArrayLike, cols: ArrayLike, vals: ArrayLike,
     return MatmulOperator(shape=(m, n), mm_fn=_split_mm, rmm_fn=_split_rmm,
                           operands=((d, head_ids), row_side, col_side),
                           dtype=dtype)
+
+
+# --------------------------------------------------------------------------
+# padded per-row layout (seen lists, holdout lists)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PaddedRows:
+    """Variable-length per-row integer lists padded to a rectangle
+    (:class:`polara_tpu.ops.sparse.PaddedRows`): ``(n_rows, width)``
+    index arrays plus a validity mask.  ``fill`` is a safe in-range index
+    (0) so gathers never go out of bounds; consumers must honour
+    ``mask``."""
+    indices: np.ndarray   # int32 (n_rows, width)
+    mask: np.ndarray      # bool  (n_rows, width)
+    values: Optional[np.ndarray] = None  # aligned payload, same shape
+
+    @property
+    def shape(self):
+        return self.indices.shape
+
+
+def pad_rows(rows: np.ndarray, cols: np.ndarray,
+             values: Optional[np.ndarray], n_rows: int,
+             width: Optional[int] = None) -> PaddedRows:
+    """Pack COO (row, col[, value]) into the padded-row layout (numpy,
+    the JAX package's construction).  Requires ``rows`` sorted
+    ascending."""
+    rows = np.asarray(rows)
+    counts = np.bincount(rows, minlength=n_rows)
+    max_len = int(counts.max()) if counts.size else 0
+    width = width or max(max_len, 1)
+    if max_len > width:
+        raise ValueError(f"row length {max_len} exceeds width {width}")
+    positions = np.arange(len(rows)) - np.repeat(
+        np.concatenate(([0], np.cumsum(counts)[:-1])), counts)
+    indices = np.zeros((n_rows, width), dtype=np.int32)
+    mask = np.zeros((n_rows, width), dtype=bool)
+    indices[rows, positions] = cols
+    mask[rows, positions] = True
+    payload = None
+    if values is not None:
+        payload = np.zeros((n_rows, width), dtype=np.asarray(values).dtype)
+        payload[rows, positions] = values
+    return PaddedRows(indices=indices, mask=mask, values=payload)
+
+
+# --------------------------------------------------------------------------
+# batched inner products (sampled evaluation hot path)
+# --------------------------------------------------------------------------
+
+# bytes of one block's two (rows x t x rank) gathers in inner_product_at
+GATHER_BLOCK_BYTES = 1 << 28
+
+
+def inner_product_at(u: torch.Tensor, v: torch.Tensor, ui: torch.Tensor,
+                     vi: torch.Tensor, block_rows: Optional[int] = None
+                     ) -> torch.Tensor:
+    """``out[b, t] = u[ui[b, t]] · v[vi[b, t]]`` on the factors' device.
+
+    The gathers ``u[ui]`` and ``v[vi]`` are (b x t x rank) each, so the
+    rows of ``ui``/``vi`` run in blocks of ``block_rows`` (default: two
+    gathers within :data:`GATHER_BLOCK_BYTES`).  Each element is the sum of
+    its own rank products, the same in every block, so the blocking does
+    not change a bit of the result."""
+    ui = torch.as_tensor(ui, device=u.device).long()
+    vi = torch.as_tensor(vi, device=v.device).long()
+    ui, vi = torch.broadcast_tensors(ui, vi)
+    n_rows = ui.shape[0]
+    if block_rows is None:
+        per_row = 2 * max(1, ui[0].numel() if n_rows else 1) * u.shape[-1] \
+            * u.element_size()
+        block_rows = max(1, GATHER_BLOCK_BYTES // per_row)
+    if block_rows >= n_rows:
+        return (u[ui] * v[vi]).sum(-1)
+    return torch.cat([(u[ui[lo:lo + block_rows]]
+                       * v[vi[lo:lo + block_rows]]).sum(-1)
+                      for lo in range(0, n_rows, block_rows)], 0)

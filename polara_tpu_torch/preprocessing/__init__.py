@@ -1,6 +1,8 @@
 """Stateless preprocessing utilities (counterpart of
-:mod:`polara_tpu.preprocessing`; ``dataframes`` and ``matrices`` are not
-ported yet).  ``features`` needs pandas and scipy."""
-from polara_tpu_torch.preprocessing import features
+:mod:`polara_tpu.preprocessing`): frame-level splits and samplers
+(``dataframes``), CSR-level splits, samplers and the EigenRec rescaling
+(``matrices``), and the feature encoders (``features``, which needs
+pandas and scipy)."""
+from polara_tpu_torch.preprocessing import dataframes, features, matrices
 
-__all__ = ["features"]
+__all__ = ["dataframes", "features", "matrices"]

@@ -13,10 +13,16 @@ from polara_tpu_torch.runtime.memory import (array_split,
 from polara_tpu_torch.runtime.mesh import (get_default_mesh, make_mesh,
                                            set_default_mesh, shard_rows,
                                            use_mesh, user_sharding)
-from polara_tpu_torch.runtime.rng import check_random_state
-from polara_tpu_torch.runtime.timing import format_elapsed_time, track_time
+from polara_tpu_torch.runtime.rng import (check_random_state, key_from_seed,
+                                          random_seeds)
+from polara_tpu_torch.runtime.timing import (enable_compilation_cache,
+                                             format_elapsed_time,
+                                             profiler_trace, timed_blocked,
+                                             track_time)
 
-__all__ = ["track_time", "format_elapsed_time", "check_random_state",
+__all__ = ["track_time", "timed_blocked", "format_elapsed_time",
+           "profiler_trace", "enable_compilation_cache",
+           "check_random_state", "random_seeds", "key_from_seed",
            "plan_user_chunks", "range_division", "pad_dim", "array_split",
            "get_chunk_size", "get_available_memory", "read_npz_from_url",
            "save_factors",

@@ -4,12 +4,14 @@ Counterpart of :mod:`polara_tpu.runtime.checkpoint`'s npz pair, in the
 same format byte for byte: one array per factor, the names of factors
 that are None under ``none_keys``, and the metadata, all in the
 ``__polara_meta__`` entry as UTF-8 JSON bytes.  A file saved by either
-package loads in the other.  The orbax pair of the JAX package is not
-ported.
+package loads in the other.  The JAX package's orbax pair has
+name-parity functions here (:func:`save_factors_orbax`,
+:func:`load_factors_orbax`) over the same npz format.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -59,3 +61,26 @@ def load_factors(path: str,
     for key in record["none_keys"]:
         factors[key] = None
     return factors, record["meta"]
+
+
+_ORBAX_FILE = "factors.npz"
+
+
+def save_factors_orbax(path: str, factors: Dict[str, Any],
+                       meta: Optional[Dict[str, Any]] = None) -> None:
+    """Name-parity counterpart of the JAX package's orbax checkpoint:
+    ``path`` becomes a directory holding one ``factors.npz`` in
+    :func:`save_factors`' format.  The files are not orbax's: neither
+    package's orbax loader reads them, and this pair reads no orbax
+    checkpoint."""
+    os.makedirs(path, exist_ok=True)
+    save_factors(os.path.join(path, _ORBAX_FILE), factors, meta)
+
+
+def load_factors_orbax(path: str,
+                       device: Union[str, torch.device, None] = None
+                       ) -> Tuple[Dict[str, Optional[torch.Tensor]],
+                                  Dict[str, Any]]:
+    """Load a directory written by :func:`save_factors_orbax` (npz inside,
+    not orbax's format) as tensors on ``device`` (default: the card)."""
+    return load_factors(os.path.join(path, _ORBAX_FILE), device=device)

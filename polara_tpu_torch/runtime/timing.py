@@ -2,11 +2,13 @@
 :mod:`polara_tpu.runtime.timing`).
 
 PyTorch returns from a CUDA call before the device finishes, so
-:func:`track_time` synchronises the device before it reads the clock, at
-both ends of the block.
+:func:`track_time` and :func:`timed_blocked` synchronise the device before
+they read the clock, at both ends.  :func:`profiler_trace` records a
+``torch.profiler`` trace of a block.
 """
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 from typing import List, Optional
@@ -47,3 +49,40 @@ def track_time(store: Optional[List[float]] = None, verbose: bool = False,
         if verbose:
             name = f"{model} " if model else ""
             print(f"{name}{label} time: {format_elapsed_time(elapsed)}")
+
+
+def timed_blocked(fn, *args, **kwargs):
+    """Run ``fn`` and wait for the device's queued work; return
+    ``(result, seconds)``."""
+    _sync()
+    start = time.perf_counter()
+    result = fn(*args, **kwargs)
+    _sync()
+    return result, time.perf_counter() - start
+
+
+@contextmanager
+def profiler_trace(logdir: Optional[str] = None):
+    """Optionally record a ``torch.profiler`` trace of a block (the CPU,
+    and the card when one is in use) into ``logdir/trace.json`` (Chrome
+    trace format).  Yields the profiler (None without ``logdir``), whose
+    ``key_averages()`` summarise the block."""
+    if logdir is None:
+        yield None
+        return
+    import torch.profiler as tp
+    activities = [tp.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(tp.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with tp.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def enable_compilation_cache(cache_dir: Optional[str] = None) -> None:
+    """Name-parity no-op: the JAX package persists XLA executables here.
+    The port's one compiled artifact, the CUDA kernel library, is already
+    cached by content hash in the package's ``_build/`` directory, and
+    the rest of the port runs eagerly, so there is nothing to enable."""
+    return None

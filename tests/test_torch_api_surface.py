@@ -12,33 +12,9 @@ import polara_tpu
 
 # unported public names, per polara_tpu package
 UNPORTED = {
-    "polara_tpu": {
-        "get_movielens_data", "get_netflix_data", "get_bookcrossing_data",
-        "get_amazon_data",
-    },
-    "polara_tpu.data": {
-        "SampledEvaluationMixin", "LongTailMixin", "ItemPostFilteringData",
-    },
-    "polara_tpu.datasets": {
-        "get_amazon_data", "get_bookcrossing_data", "get_epinions_data",
-        "get_movielens_data", "filter_short_head", "get_netflix_data",
-        "get_yahoo_music_data",
-    },
-    "polara_tpu.models": {
-        "ItemPostFilteringMixin",
-    },
-    "polara_tpu.ops": {
-        "PaddedRows", "inner_product_at", "pad_rows",
-    },
-    "polara_tpu.preprocessing": {
-        "dataframes", "matrices",
-    },
-    "polara_tpu.recommender": {
-        "data", "models", "evaluation",
-    },
-    "polara_tpu.runtime": {
-        "timed_blocked", "profiler_trace", "enable_compilation_cache",
-        "random_seeds", "key_from_seed",
+    "polara_tpu.models.external": {
+        "LightFMWrapper", "LightFMItemColdStart", "MyMediaLiteWrapper",
+        "TuriFactorizationRecommender",
     },
 }
 
@@ -54,10 +30,11 @@ def _exports(module):
 
 def _port_gaps():
     """``{polara_tpu package: names its port lacks}`` over the top level
-    and every subpackage."""
+    and every subpackage, nested ones included."""
     packages = ["polara_tpu"] + [
-        f"polara_tpu.{info.name}"
-        for info in pkgutil.iter_modules(polara_tpu.__path__)
+        info.name
+        for info in pkgutil.walk_packages(polara_tpu.__path__,
+                                          prefix="polara_tpu.")
         if info.ispkg]
     gaps = {}
     for name in packages:

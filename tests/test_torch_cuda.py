@@ -549,3 +549,130 @@ def test_streaming_builds_on_the_card_are_bit_identical():
     # the sine in f64: in f32, sqrt(1 - cos²) bottoms out near 3e-4
     assert principal_angles_max_sin(meshed.v.double(),
                                     single.v.double()) < 1e-4
+
+
+def _forced_sample(seed=5, n_users=300, n_items=2000, rank=16, unseen=64):
+    """Integer factors and seen sets that leave every user exactly
+    ``unseen`` items: the sample is forced, whichever stream draws it."""
+    rs = np.random.RandomState(seed)
+    u = rs.randint(-3, 4, (n_users, rank)).astype(np.float32)
+    v = rs.randint(-3, 4, (n_items, rank)).astype(np.float32)
+    mask = np.ones((n_users, n_items), bool)
+    for r in range(n_users):
+        mask[r, rs.choice(n_items, unseen, replace=False)] = False
+    rows, cols = np.nonzero(mask)
+    return u, v, rows, cols
+
+
+@pytest.mark.cuda
+def test_sampled_scores_and_inner_products_on_the_card_equal_the_cpu():
+    from polara_tpu_torch.ops.samplers import sampled_scores
+    from polara_tpu_torch.ops.sparse import inner_product_at
+    from polara_tpu_torch.runtime.rng import generator_from_seed
+    device = _cuda()
+    u, v, rows, cols = _forced_sample()
+    out = {}
+    for where in ("cpu", device):
+        out[str(where)] = sampled_scores(
+            torch.as_tensor(u, device=where), torch.as_tensor(v, device=where),
+            torch.as_tensor(rows), torch.as_tensor(cols),
+            torch.ones(len(rows), dtype=torch.bool),
+            generator_from_seed(0, where), 64, chunk_rows=128,
+            return_items=True)
+    (cpu_s, cpu_i), (card_s, card_i) = out["cpu"], out[str(device)]
+    assert card_s.device.type == "cuda"
+    assert torch.equal(torch.sort(card_i.cpu(), 1).values,
+                       torch.sort(cpu_i, 1).values)
+    assert torch.equal(torch.sort(card_s.cpu(), 1).values,
+                       torch.sort(cpu_s, 1).values)
+    ui = torch.arange(len(u))[:, None]
+    whole = inner_product_at(torch.as_tensor(u, device=device),
+                             torch.as_tensor(v, device=device), ui, cpu_i)
+    assert torch.equal(whole.cpu(), inner_product_at(
+        torch.as_tensor(u), torch.as_tensor(v), ui, cpu_i))
+    assert torch.equal(whole, inner_product_at(
+        torch.as_tensor(u, device=device), torch.as_tensor(v, device=device),
+        ui, cpu_i, block_rows=37))
+
+
+def _context_data():
+    import pandas as pd
+    from polara_tpu_torch.data import ItemPostFilteringData
+    rs = np.random.RandomState(0)
+    n_users, n_items = 400, 120
+    genres = np.array(["action", "comedy", "drama", "noir"])
+    item_genre = genres[rs.randint(0, len(genres), n_items)]
+    rows = [(u, i, rs.randint(1, 6), item_genre[i]) for u in range(n_users)
+            for i in rs.choice(n_items, rs.randint(5, 15), replace=False)]
+    events = pd.DataFrame(rows, columns=["userid", "movieid", "rating",
+                                         "genre"])
+    mapping = pd.DataFrame({"movieid": np.arange(n_items),
+                            "genre": item_genre})
+    data = ItemPostFilteringData(events, "userid", "movieid", "rating",
+                                 item_context_mapping={"genre": mapping},
+                                 seed=0, verbose=False)
+    data.holdout_size = 1
+    data.test_ratio = 0.2
+    data.prepare()
+    return data
+
+
+@pytest.mark.cuda
+def test_contextual_scoring_on_the_card_equals_the_cpu():
+    """Integer factors: the boosted scores are exact, so the card's ids
+    equal the CPU's, and the boost keeps the model off the kernel."""
+    from polara_tpu_torch.models import ItemPostFilteringMixin, SVDModel
+
+    class ContextSVD(ItemPostFilteringMixin, SVDModel):
+        pass
+
+    device = _cuda()
+    data = _context_data()
+    n_items = len(data.get_entity_index("movieid"))
+    rs = np.random.RandomState(1)
+    factors = {"userid": None, "movieid": torch.as_tensor(
+        rs.randint(-2, 3, (n_items, 8)), dtype=torch.float32),
+        "singular_values": torch.ones(8)}
+    recs = {}
+    for where in ("cpu", device):
+        model = ContextSVD(data, device=where)
+        model.set_factors(factors)
+        before = tf.fused_score_topk.launches
+        recs[str(where)] = model.recommendations
+        assert tf.fused_score_topk.launches == before
+    np.testing.assert_array_equal(recs[str(device)], recs["cpu"])
+
+
+@pytest.mark.cuda
+def test_sampled_fold_in_is_bit_identical_on_the_card():
+    from polara_tpu_torch.data import RecommenderData, SampledEvaluationMixin
+    from polara_tpu_torch.datasets.synthetic import \
+        make_synthetic_interactions
+    from polara_tpu_torch.models import SVDModel
+    from polara_tpu_torch.models.sampled import SampledEvaluationSVDMixin
+
+    class Data(SampledEvaluationMixin, RecommenderData):
+        pass
+
+    class Model(SampledEvaluationSVDMixin, SVDModel):
+        pass
+
+    device = _cuda()
+    events = make_synthetic_interactions(n_users=3000, n_items=500,
+                                         n_events=60_000, seed=0)
+    data = Data(events, "userid", "movieid", "rating", seed=0,
+                verbose=False)
+    data.warm_start = False
+    data.holdout_size = 1
+    data.prepare()
+    data.unseen_items_num = 100
+    model = Model(data, device=device)
+    model.verbose = False
+    model.rank = 20
+    model.build()
+    first, _, _ = model._test_user_factors()
+    second, _, _ = model._test_user_factors()
+    assert first.device.type == "cuda" and torch.equal(first, second)
+    recs = model.recommendations
+    model._recommendations = None
+    np.testing.assert_array_equal(model.recommendations, recs)

@@ -19,13 +19,16 @@ IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
            "polara_tpu_torch.parallel.distributed, "
            "polara_tpu_torch.models.implicit_mf, "
            "polara_tpu_torch.runtime.memory, "
-           "polara_tpu_torch.datasets.synthetic")
-# the pandas tier: the data model, the experiment pipelines and the
-# feature encoders
+           "polara_tpu_torch.datasets.synthetic, "
+           "polara_tpu_torch.ops.samplers, polara_tpu_torch.models.sampled, "
+           "polara_tpu_torch.models.contextual")
+# the pandas tier: the data model, the experiment pipelines, the
+# preprocessing functions and feature encoders, and the import-path aliases
 PANDAS_TIER = ("import polara_tpu_torch.data, "
                "polara_tpu_torch.evaluation.engine, "
                "polara_tpu_torch.evaluation.pipelines, "
-               "polara_tpu_torch.preprocessing")
+               "polara_tpu_torch.preprocessing, "
+               "polara_tpu_torch.recommender")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
