@@ -187,7 +187,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``sampled_scores``, ``inner_product_at``, the loader's read, unfused
    contextual vs fused plain scoring, peak memory.
 
-pandas is required (phases 4-12): without it the script exits non-zero
+13. Past the kernel's whole-rank staging.  (a) PureSVD rank 300 through
+   ``evaluate()`` under the default route on phase 3's data and split
+   (the data model: training events as its frame, the held-out events
+   set as its holdout): the kernel walks the rank in 48-row slices.  (a')
+   ``find_optimal_svd_rank`` over ranks (250, 300) on phase 5's data
+   (a fixed-count build).
+   (b) ``MyMediaLiteWrapper`` on (a)'s data through a stand-in for
+   ``item_recommendation`` (``MML_STAND_IN``: the wrapper's command line,
+   MyMediaLite's text layouts, reversed id mappings, factors saved by
+   this script): WRMF rank 50 carrying phase 3's PureSVD-50 factors, and
+   BPRMF rank 256 carrying (a)'s factors with the item log-popularity as
+   its bias, 257 columns after the QR fold-in.  Gates: each launched the
+   kernel; ids in range; the picks of the first 4,096 test users equal
+   the plain version's bit for bit (rank 300, BPRMF); metric delta and
+   top-10 overlap against exact f64 factors; rank 250's picks from the
+   zero-padded factors equal the truncated ones' bit for bit; WRMF's raw
+   factors land on their framework ids exactly, and after the QR its
+   picks overlap PureSVD-50's >= 0.999 with HR@10 within 1e-4; BPRMF
+   scores 257 columns and beats popularity's HR@10.  Times: the build,
+   the exact reference, the sweep, each adapter step (CSV dump, the
+   stand-in, the parse, the QR, the scoring), the kernel at 69,878 x
+   10,677 x 300 with its bound, peak memory.
+
+pandas is required (phases 4-13): without it the script exits non-zero
 before phase 1.
 
 Prints the card's name and power limit, a JSON line describing each
@@ -197,12 +220,12 @@ max SM clock, or the bytes at the HBM rate, whichever is larger; the
 cuBLAS scores-only product as ``library_ms`` and the ``torch.topk``
 route as ``topk_ms``; the SM clock under load; ``launches`` counts calls
 of the C entry point in phase 3, each of which runs the panel transpose
-and then the score kernel, and ``launches_by_path`` those of phases 3-12;
+and then the score kernel, and ``launches_by_path`` those of phases 3-13;
 ``sweep_top_rank`` the same fields at the sweep's rank-150 shape,
 ``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
 shape, ``serving_batch`` at one serving batch, ``hybrid_scoring`` at
-HybridSVD's, ``netflix_scoring`` at phase 11's 480,189 users, and
-``mesh_merge_ms``), and as
+HybridSVD's, ``netflix_scoring`` at phase 11's 480,189 users,
+``rank_300`` at phase 13's rank, and ``mesh_merge_ms``), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
@@ -233,6 +256,12 @@ EDGE_CASES = [
     (23, 63, 300, 256, 1, 250, False),
     (24, 129, 1000, 3, 128, 999, True),
     (25, 64, 128, 1, 33, 128, True),
+    # past the whole-rank staging (256): the rank walked in 48-row slices,
+    # 520 not a multiple of the slice
+    (26, 65, 1000, 257, 10, 900, True),
+    (27, 129, 777, 300, 128, 700, True),
+    (28, 63, 1000, 520, 1, 1000, False),
+    (29, 200, 3000, 300, 10, 3000, True),
 ]
 # builds of fused_topk.cu that switch a part off (macros at its head),
 # timed beside the kernel at the main path's inputs
@@ -426,6 +455,11 @@ def kernel_phase(device="cuda"):
     proj, items, bits = _case_tensors(rs, 40, 2000, 50, 0, device,
                                       integer=True)
     _compare(proj, items, bits, 128, filter_seen=False, exact=True)
+    log("case integer ties, rank 300 (sliced), 40 users x 2000 items, k=128")
+    rs = np.random.RandomState(9)
+    proj, items, bits = _case_tensors(rs, 40, 2000, 300, 20_000, device,
+                                      integer=True)
+    _compare(proj, items, bits, 128, exact=True)
     log("case PAD beyond the catalog (35 items, k=40)")
     rs = np.random.RandomState(1)
     proj, items, bits = _case_tensors(rs, 16, 35, 12, 0, device)
@@ -731,7 +765,7 @@ def phase_split(proj, panel, bits, n_valid, reps=10):
 
     def call(lib):
         err = lib.polara_fused_score_topk(
-            proj.data_ptr(), panel.data_ptr(), items_t.data_ptr(),
+            proj.data_ptr(), panel.data_ptr(), items_t.data_ptr(), None,
             bits.data_ptr(), vals.data_ptr(), idx.data_ptr(), n_users,
             panel.shape[0], rank, bits.shape[1], n_valid, TOPK, 1, stream)
         if err:
@@ -941,7 +975,7 @@ def sweep_phase(geometry, device="cuda", ranks=tuple(range(10, 160, 10)),
     from polara_tpu_torch.datasets import make_realistic_coo_device
     from polara_tpu_torch.datasets.synthetic import events_frame
     from polara_tpu_torch.evaluation.pipelines import (
-        _mask_trailing_columns, evaluate_models, find_optimal_svd_rank)
+        evaluate_models, find_optimal_svd_rank)
     from polara_tpu_torch.models import ScaledSVD, SVDModel
     from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
                                                  fused_score_topk_reference)
@@ -1028,20 +1062,7 @@ def sweep_phase(geometry, device="cuda", ranks=tuple(range(10, 160, 10)),
     chunk = plan.chunks[0]
     n_items = v_top.shape[0]
     bits = plan.seen_bits(0, n_items)
-    for r in (10, 50, top):
-        v_pad = _mask_trailing_columns(v_top, r).contiguous()
-        params = {"item_factors": v_pad, "item_panel": v_pad}
-        proj = SVDModel.proj_chunk(params, chunk).contiguous()
-        pad_vals, pad_ids = fused_score_topk(proj, v_pad, bits, TOPK,
-                                             n_valid_cols=n_items,
-                                             return_values=True)
-        tr_vals, tr_ids = fused_score_topk(
-            proj[:, :r].contiguous(), v_pad[:, :r].contiguous(), bits,
-            TOPK, n_valid_cols=n_items, return_values=True)
-        check(torch.equal(pad_ids, tr_ids) and torch.equal(pad_vals,
-                                                           tr_vals),
-              f"rank {r}: padded-to-{top} picks == truncated picks, ids and "
-              "values bit for bit")
+    padded_rank_gates(plan, v_top, (10, 50, top))
 
     # (d) fused_ok at the top rank over the first test users
     params = {"item_factors": v_top, "item_panel": v_top}
@@ -1139,15 +1160,45 @@ def sweep_phase(geometry, device="cuda", ranks=tuple(range(10, 160, 10)),
     return out
 
 
+def padded_rank_gates(plan, v_top, ranks):
+    """A rank sweep pads each rank's factors with zero columns up to the
+    top rank: at each of ``ranks`` the kernel's picks from the padded
+    factors must equal the truncated factors' picks, ids and values bit
+    for bit (the plan's first chunk)."""
+    import torch
+    from polara_tpu_torch.evaluation.pipelines import _mask_trailing_columns
+    from polara_tpu_torch.models import SVDModel
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+    chunk = plan.chunks[0]
+    n_items, top = v_top.shape
+    bits = plan.seen_bits(0, n_items)
+    for r in ranks:
+        v_pad = _mask_trailing_columns(v_top, r).contiguous()
+        params = {"item_factors": v_pad, "item_panel": v_pad}
+        proj = SVDModel.proj_chunk(params, chunk).contiguous()
+        pad_vals, pad_ids = fused_score_topk(proj, v_pad, bits, TOPK,
+                                             n_valid_cols=n_items,
+                                             return_values=True)
+        tr_vals, tr_ids = fused_score_topk(
+            proj[:, :r].contiguous(), v_pad[:, :r].contiguous(), bits,
+            TOPK, n_valid_cols=n_items, return_values=True)
+        check(torch.equal(pad_ids, tr_ids) and torch.equal(pad_vals,
+                                                           tr_vals),
+              f"rank {r}: padded-to-{top} picks == truncated picks, ids and "
+              "values bit for bit")
+
+
 def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
     """The kernel at the sweep's top-rank shape: its time beside the plain
     version's, cuBLAS's scores alone and the PyTorch route (scores, seen
     mask, ``torch.topk``, as phase 3's ``topk_baseline``), its bound, and
     the blocks per SM
     its shared memory allows (the kernel takes
-    4 * (rank * (64 + 128) + 64 * 132) bytes a block)."""
+    4 * (staged * (64 + 128) + 64 * 132) bytes a block, staged = the rank
+    up to ``STAGED_RANK``, above it ``RANK_SLICE``)."""
     import torch
-    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+    from polara_tpu_torch.ops.fused_topk import (RANK_SLICE, STAGED_RANK,
+                                                 fused_score_topk,
                                                  fused_score_topk_reference,
                                                  seen_mask)
     n_users, rank = proj.shape
@@ -1166,7 +1217,8 @@ def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
         fields["topk_ms"] = time_ms(topk_route, reps)
         props = torch.cuda.get_device_properties(proj.device)
         per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-        smem = 4 * (rank * (64 + 128) + 64 * 132)
+        staged = rank if rank <= STAGED_RANK else RANK_SLICE
+        smem = 4 * (staged * (64 + 128) + 64 * 132)
         fields["smem_bytes"] = smem
         fields["blocks_per_sm_by_smem"] = per_sm // (smem + 1024)
     fields["flop"] = 2 * n_users * n_items * rank
@@ -3815,6 +3867,467 @@ def protocols_phase(geometry, small_geometry, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the fused kernel past rank 256, and MyMediaLite's adapter
+# --------------------------------------------------------------------------
+
+C5_RANK = 300                # past the kernel's whole-rank staging (256)
+C5_SWEEP_RANKS = (250, 300)  # the sweep pads 250 up to 300
+MML_WRMF_RANK = 50           # carries phase 3's PureSVD-50 factors
+MML_BPR_RANK = 256           # + the bias column: 257 columns after the QR
+
+# The stand-in for MyMediaLite's ``item_recommendation`` (the card has no
+# MyMediaLite and no network), in the manner of tests/_fake_mml.py: it
+# takes the wrapper's exact command line, reads the training CSV for the
+# ids, and writes the factors saved beside it (``factors.npz``, rows by
+# framework id) in MyMediaLite's text layout, with the id mappings in
+# reversed order.  Bias models follow the layout with biases.  Values are
+# written with 9 significant digits, which gives every f32 back exactly.
+MML_STAND_IN = r'''
+import os
+import sys
+
+import numpy as np
+import pandas as pd
+
+BLOCK = 1 << 21
+
+
+def digits(out, col, width, x):
+    for j in range(width):
+        out[:, col + width - 1 - j] = 48 + (x // 10 ** j) % 10
+
+
+def decimal(vals):
+    """'+mmmmmmmmme+ee': 9 significant digits of each value."""
+    v = np.asarray(vals, np.float64)
+    a = np.abs(v)
+    e = np.zeros(len(v), np.int64)
+    nz = a > 0
+    e[nz] = np.floor(np.log10(a[nz])).astype(np.int64) - 8
+    m = np.rint(a / 10.0 ** e).astype(np.int64)
+    for fix, step in ((m >= 10 ** 9, 1), (nz & (m < 10 ** 8), -1)):
+        e[fix] += step
+        m[fix] = np.rint(a[fix] / 10.0 ** e[fix]).astype(np.int64)
+    out = np.empty((len(v), 14), np.uint8)
+    out[:, 0] = np.where(v < 0, ord("-"), ord("+"))
+    digits(out, 1, 9, m)
+    out[:, 10] = ord("e")
+    out[:, 11] = np.where(e < 0, ord("-"), ord("+"))
+    digits(out, 12, 2, np.abs(e))
+    return out
+
+
+def write_factors(handle, factors):
+    """'i f value' rows, entity by entity (ids in internal order)."""
+    n, nf = factors.shape
+    width = len(str(max(n - 1, 0)))
+    for lo in range(0, n * nf, BLOCK):
+        flat = np.arange(lo, min(lo + BLOCK, n * nf))
+        out = np.empty((len(flat), width + 21), np.uint8)
+        digits(out, 0, width, flat // nf)
+        out[:, width] = 32
+        digits(out, width + 1, 4, flat % nf)
+        out[:, width + 5] = 32
+        out[:, width + 6:width + 20] = decimal(factors.reshape(-1)[flat])
+        out[:, -1] = 10
+        handle.write(out.tobytes())
+
+
+def write_values(handle, vals):
+    out = np.empty((len(vals), 15), np.uint8)
+    out[:, :14] = decimal(vals)
+    out[:, 14] = 10
+    handle.write(out.tobytes())
+
+
+args = {}
+for arg in sys.argv[1:]:
+    if arg.startswith("--") and "=" in arg:
+        key, _, value = arg[2:].partition("=")
+        args[key] = value
+    else:
+        args[arg.lstrip("-")] = True
+nf = 10
+for opt in args.get("recommender-options", "").strip('"').split():
+    key, _, value = opt.partition("=")
+    if key == "num_factors":
+        nf = int(value)
+algo = args["recommender"]
+saved = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "factors.npz"))
+user, item = saved["user"], saved["item"]
+bias = saved["bias"] if "bias" in saved.files else None
+if user.shape[1] != nf or item.shape[1] != nf:
+    sys.exit(f"num_factors={nf}, saved factors {user.shape}/{item.shape}")
+if "no-id-mapping" in args:
+    users, items = np.arange(len(user)), np.arange(len(item))
+else:
+    train = pd.read_csv(args["training-file"], header=None, usecols=[0, 1])
+    users = np.unique(train[0].to_numpy())[::-1]
+    items = np.unique(train[1].to_numpy())[::-1]
+    for key, ids in (("save-user-mapping", users),
+                     ("save-item-mapping", items)):
+        np.savetxt(args[key], np.column_stack([np.arange(len(ids)), ids]),
+                   fmt="%d\t%d")
+with open(args["save-model"], "wb") as handle:
+    handle.write(f"0.11\n{algo} stand-in\n{len(users)} {nf}\n".encode())
+    write_factors(handle, user[users])
+    if bias is not None:
+        handle.write(f"{len(items)}\n".encode())
+        write_values(handle, bias[items])
+    handle.write(f"{len(items)} {nf}\n".encode())
+    write_factors(handle, item[items])
+'''
+
+
+def write_mml_stand_in(library_dir, user, item, bias=None) -> None:
+    """The stand-in executable as ``library_dir/item_recommendation`` and
+    the factors it will write (rows by framework id) beside it."""
+    import os
+    import stat
+    from pathlib import Path
+
+    from polara_tpu_torch.models.external.mymedialite import PROGRAM
+    arrays = {"user": user, "item": item}
+    if bias is not None:
+        arrays["bias"] = bias
+    np.savez(Path(library_dir) / "factors.npz", **arrays)
+    program = Path(library_dir) / PROGRAM
+    program.write_text(f"#!{sys.executable}\n{MML_STAND_IN}")
+    os.chmod(program, os.stat(program).st_mode | stat.S_IXUSR)
+
+
+def phase3_data_model(geometry, device):
+    """Phase 3's data and split through the data model: the training
+    events as its frame, each user's held-out event as the holdout (known
+    users, every user tested)."""
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    rows, cols, vals = (x.cpu().numpy() for x in make_realistic_coo_device(
+        **geometry, seed=0, device=device))
+    _, _, hold_mask = holdout_split(rows, cols)
+    keep = ~hold_mask
+    data = RecommenderData(events_frame(rows[keep], cols[keep], vals[keep]),
+                           "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.prepare_training_only()
+    data.set_test_data(holdout=events_frame(rows[hold_mask], cols[hold_mask],
+                                            vals[hold_mask]),
+                       warm_start=False)
+    data.name = "ml10m_geometry"
+    return data
+
+
+def path_plain_picks(model, users):
+    """The plain version of the model's fused route for its first
+    ``users`` test users: ``fused_score_topk_reference`` over the panel in
+    the route's item order (``fused_item_order``), ids mapped back."""
+    import torch
+    from polara_tpu_torch import config
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk_reference
+    params = model.score_params()
+    panel = params["item_panel"]
+    plan = model._test_plan
+    n_items = panel.shape[0]
+    proj = type(model).proj_chunk(params, plan.chunks[0])[:users]
+    if config.get_default("fused_item_order") == "popularity":
+        perm, inv = plan.pop_order(n_items)
+        lookup = torch.as_tensor(perm, device=panel.device)
+        bits = plan.seen_bits(0, n_items, col_map=inv,
+                              map_token=("pop", n_items))
+        plain = fused_score_topk_reference(proj, panel.index_select(
+            0, lookup), bits[:users], TOPK, n_valid_cols=n_items)
+        return torch.where(plain >= 0, lookup[plain.long().clamp(min=0)],
+                           plain.long())
+    bits = plan.seen_bits(0, n_items)
+    return fused_score_topk_reference(proj, panel, bits[:users], TOPK,
+                                      n_valid_cols=n_items).long()
+
+
+def fused_ok_exact(model, name, out, verify_users=VERIFY_USERS):
+    """``fused_ok`` held bit for bit: the model's picks for its first test
+    users equal the plain version's."""
+    import torch
+    users = min(verify_users, len(model._test_users))
+    recs = model._device_recommendations()[:users].long()
+    plain = path_plain_picks(model, users)
+    out["fused_exact_agreement"][name] = (recs == plain).float().mean().item()
+    check(torch.equal(recs, plain), f"{name} fused_ok: the picks of "
+          f"{users} users are the plain version's, bit for bit")
+
+
+def rank300_part(geometry, device, out):
+    """(a) PureSVD at rank 300 through ``evaluate()`` under the default
+    route, on phase 3's data and split, against exact f64 factors."""
+    import torch
+    from polara_tpu_torch.models import PopularityModel, SVDModel
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+
+    t0 = wall()
+    data = phase3_data_model(geometry, device)
+    out["data_s"] = wall() - t0
+    model = SVDModel(data, device=device)
+    model.verbose = False
+    model.rank = C5_RANK
+    fused_score_topk.launches = 0
+    t0 = wall()
+    hr = float(model.evaluate("relevance", simple_rates=True).hr)
+    out["evaluate_s"] = wall() - t0
+    ndcg = float(model.evaluate("ranking").ndcg)
+    out["build_s"] = model.training_time[-1]
+    out["launches"]["rank_300"] = fused_score_topk.launches
+    out["svd_info"] = model.svd_info
+    itemid = data.fields.itemid
+    v300 = model.factors[itemid].contiguous()
+    recs = model._device_recommendations()
+    n_items = v300.shape[0]
+    out["metrics"]["rank_300"] = {"hr": hr, "ndcg": ndcg}
+    log(f"  PureSVD-{C5_RANK}: HR@{TOPK} {hr:.5f} NDCG@{TOPK} "
+        f"{ndcg:.5f}; build {out['build_s']:.2f} s, evaluate "
+        f"{out['evaluate_s']:.2f} s; {out['launches']['rank_300']} "
+        f"launch(es)")
+    check(out["launches"]["rank_300"] > 0,
+          f"PureSVD-{C5_RANK} evaluate() launched the kernel")
+    check(bool(((recs >= 0) & (recs < n_items)).all()),
+          f"every id in [0, {n_items})")
+    fused_ok_exact(model, "rank_300", out)
+
+    # exact f64 factors from the Gram's eigendecomposition
+    t0 = wall()
+    d64 = model.get_training_matrix(dense=True).double()
+    evals, evecs = torch.linalg.eigh(d64.T @ d64)
+    del d64
+    v_exact = evecs[:, -C5_RANK:].flip(1).float().contiguous()
+    s_exact = evals[-C5_RANK:].flip(0).clamp(min=0).sqrt().float()
+    del evals, evecs
+    out["exact_factor_s"] = wall() - t0
+    exact = SVDModel(data, device=device)
+    exact.verbose = False
+    exact.rank = C5_RANK
+    exact.set_factors({data.fields.userid: None, itemid: v_exact,
+                       "singular_values": s_exact})
+    hr_ex = float(exact.evaluate("relevance", simple_rates=True).hr)
+    ndcg_ex = float(exact.evaluate("ranking").ndcg)
+    delta = max(abs(hr - hr_ex), abs(ndcg - ndcg_ex))
+    overlap = _overlap(recs, exact._device_recommendations())
+    out["metric_delta_vs_exact"], out["top10_overlap"] = delta, overlap
+    out["metrics"]["rank_300_exact"] = {"hr": hr_ex, "ndcg": ndcg_ex}
+    log(f"  exact f64 factors: HR@{TOPK} {hr_ex:.5f} NDCG@{TOPK} "
+        f"{ndcg_ex:.5f} ({out['exact_factor_s']:.2f} s)")
+    check(delta < 1e-3, f"metric_delta_vs_exact {delta:.2e} < 1e-3")
+    check(overlap >= 0.99, f"top-{TOPK} overlap {overlap:.5f} >= 0.99")
+    del exact
+
+    popularity = PopularityModel(data, device=device)
+    popularity.verbose = False
+    out["metrics"]["popularity"] = {
+        "hr": float(popularity.evaluate("relevance", simple_rates=True).hr)}
+
+    # the kernel at the main path's shape and rank 300
+    plan = model._test_plan
+    check(len(plan.chunks) == 1, "one chunk holds every test user")
+    proj = SVDModel.proj_chunk(model.score_params(), plan.chunks[0])
+    proj = proj.contiguous()
+    bits = plan.seen_bits(0, n_items)
+    out["kernel"] = sweep_kernel_fields(proj, v300, bits, n_items)
+    agree, out["kernel"]["max_abs_err"] = _compare(proj, v300, bits, TOPK)
+    out["kernel"]["exact_agreement"] = agree
+    log(f"  kernel at {proj.shape[0]} x {n_items} x {C5_RANK}: "
+        + json.dumps(out["kernel"]))
+    return data, model
+
+
+def rank300_sweep_part(geometry, device, out):
+    """(a') ``find_optimal_svd_rank`` over ranks 250 and 300 on phase 5's
+    data: both ranks launch the kernel, and rank 250's picks from the
+    zero-padded factors (the sliced kernel) equal the truncated factors'
+    (the whole-rank kernel) bit for bit."""
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets import make_realistic_coo_device
+    from polara_tpu_torch.datasets.synthetic import events_frame
+    from polara_tpu_torch.evaluation.pipelines import (evaluate_models,
+                                                       find_optimal_svd_rank)
+    from polara_tpu_torch.models import SVDModel
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+
+    frame = events_frame(*make_realistic_coo_device(**geometry, seed=0,
+                                                    device=device))
+    data = RecommenderData(frame, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.warm_start = False
+    data.test_ratio = 0.05
+    data.holdout_size = 1
+    data.prepare()
+    launches = {}
+
+    def counted(model, target, **kwargs):
+        fused_score_topk.launches = 0
+        result = evaluate_models(model, target, **kwargs)
+        launches[model.rank] = fused_score_topk.launches
+        return result
+
+    model = SVDModel(data, device=device)
+    model.verbose = False
+    # a fixed-count build (svd_iters passes): (a) times the default
+    # tolerance build at rank 300; this part gates the sweep's scoring
+    model.svd_tol = None
+    t0 = wall()
+    _, scores = find_optimal_svd_rank(model, list(C5_SWEEP_RANKS), "arhr",
+                                         return_scores=True,
+                                         evaluator=counted)
+    out["sweep_s"] = wall() - t0
+    out["sweep_build_s"] = model.training_time[-1]
+    out["sweep_arhr"] = {int(r): float(v) for r, v in scores.items()}
+    out["launches"]["rank_300_sweep"] = sum(launches.values())
+    log(f"  sweep {C5_SWEEP_RANKS}: {out['sweep_s']:.2f} s, ARHR "
+        f"{json.dumps(out['sweep_arhr'])}, launches per rank "
+        f"{json.dumps(launches)}")
+    for rank in C5_SWEEP_RANKS:
+        check(launches.get(rank, 0) > 0,
+              f"the sweep's rank {rank} launched the kernel")
+    padded_rank_gates(model._test_plan,
+                      model.factors[data.fields.itemid].contiguous(),
+                      (min(C5_SWEEP_RANKS),))
+
+
+def mml_part(data, svd50, v300, device, out):
+    """(b) ``MyMediaLiteWrapper`` through the stand-in at ML-10M geometry:
+    WRMF at rank 50 carrying phase 3's PureSVD-50 factors, BPRMF at rank
+    256 carrying (a)'s factors with the item log-popularity as the bias
+    (257 columns after the QR: the sliced kernel)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from polara_tpu_torch.models import SVDModel
+    from polara_tpu_torch.models.external import MyMediaLiteWrapper
+    from polara_tpu_torch.ops.fused_topk import fused_score_topk
+
+    userid, itemid = data.fields.userid, data.fields.itemid
+    old_by_new = data.index.itemid.sort_values("new")["old"].to_numpy()
+    v50 = svd50[torch.from_numpy(old_by_new.copy()).to(svd50.device)]
+    dense = SVDModel(data, device=device).get_training_matrix(dense=True)
+    counts = (dense != 0).sum(0).double()
+    build_dir = Path(__file__).resolve().parent / "polara_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+
+    def step_timer(model, times):
+        for name in ("_save_to_disk", "_run_external", "_parse_factors",
+                     "_make_factors_orthogonal"):
+            def timed(*args, _fn=getattr(model, name), _name=name, **kw):
+                t = wall()
+                result = _fn(*args, **kw)
+                times[_name] = wall() - t
+                return result
+            setattr(model, name, timed)
+
+    def wrapper(method, rank, item, bias, tmp, **attrs):
+        user = (dense @ item).cpu().numpy()
+        library = Path(tmp) / method
+        library.mkdir()
+        write_mml_stand_in(library, user, item.cpu().numpy(), bias)
+        model = MyMediaLiteWrapper(str(library), tmp, method, data,
+                                   device=device)
+        model.verbose = False
+        model.rank = rank
+        for key, value in attrs.items():
+            setattr(model, key, value)
+        times = out["mml_s"].setdefault(method, {})
+        step_timer(model, times)
+        return model, user, times
+
+    reference = SVDModel(data, device=device)
+    reference.verbose = False
+    reference.rank = MML_WRMF_RANK
+    reference.set_factors({userid: None, itemid: v50.contiguous()})
+    ref_hr = float(reference.evaluate("relevance", simple_rates=True).hr)
+    ref_recs = reference._device_recommendations()
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # WRMF: raw placement, then the default QR fold-in
+        model, user, times = wrapper("WRMF", MML_WRMF_RANK, v50, None, tmp,
+                                     orthogonal_factors=False)
+        t0 = wall()
+        model.build()
+        times["build"] = wall() - t0
+        check(torch.equal(model.factors[userid].cpu(),
+                          torch.as_tensor(user, dtype=torch.float32))
+              and torch.equal(model.factors[itemid], v50),
+              "WRMF without the QR: every factor row lands on its "
+              "framework id exactly")
+        model.orthogonal_factors = True
+        t0 = wall()
+        model.build()
+        times["build"] = wall() - t0
+        fused_score_topk.launches = 0
+        t0 = wall()
+        hr = float(model.evaluate("relevance", simple_rates=True).hr)
+        times["evaluate"] = wall() - t0
+        out["launches"]["mml_wrmf"] = fused_score_topk.launches
+        overlap = _overlap(model._device_recommendations(), ref_recs)
+        out["metrics"]["mml_wrmf"] = {"hr": hr, "hr_puresvd50": ref_hr,
+                                      "overlap_puresvd50": overlap}
+        log(f"  MML WRMF-{MML_WRMF_RANK}: HR@{TOPK} {hr:.5f} (PureSVD-50 "
+            f"{ref_hr:.5f}), top-{TOPK} overlap {overlap:.5f}; steps (s) "
+            + json.dumps(times))
+        check(out["launches"]["mml_wrmf"] > 0, "WRMF launched the kernel")
+        check(overlap >= 0.999, f"WRMF top-{TOPK} overlap with PureSVD-50 "
+              f"{overlap:.5f} >= 0.999")
+        check(abs(hr - ref_hr) <= 1e-4, f"WRMF HR@{TOPK} {hr:.5f} within "
+              f"1e-4 of PureSVD-50's {ref_hr:.5f}")
+        del model
+
+        # BPRMF: (a)'s factors at 256 + the log-popularity bias
+        bias = torch.log1p(counts).cpu().numpy()
+        model, _, times = wrapper("BPRMF", MML_BPR_RANK,
+                                  v300[:, :MML_BPR_RANK].contiguous(), bias,
+                                  tmp)
+        t0 = wall()
+        model.build()
+        times["build"] = wall() - t0
+        fused_score_topk.launches = 0
+        t0 = wall()
+        hr = float(model.evaluate("relevance", simple_rates=True).hr)
+        times["evaluate"] = wall() - t0
+        out["launches"]["mml_bprmf"] = fused_score_topk.launches
+        width = model.factors[itemid].shape[1]
+        pop_hr = out["metrics"]["popularity"]["hr"]
+        out["metrics"]["mml_bprmf"] = {"hr": hr, "columns": width}
+        log(f"  MML BPRMF-{MML_BPR_RANK}: {width} columns, HR@{TOPK} "
+            f"{hr:.5f} (popularity {pop_hr:.5f}); steps (s) "
+            + json.dumps(times))
+        check(width == MML_BPR_RANK + 1,
+              f"BPRMF scores {width} columns (rank + bias)")
+        check(out["launches"]["mml_bprmf"] > 0, "BPRMF launched the kernel")
+        fused_ok_exact(model, "mml_bprmf", out)
+        check(hr > pop_hr, f"BPRMF HR@{TOPK} {hr:.5f} > popularity's "
+              f"{pop_hr:.5f}")
+
+
+def external_phase(geometry, svd50, device="cuda"):
+    """Phase 13.  ``svd50``: phase 3's PureSVD-50 item factors (rows by
+    phase 3's item ids).  Raises on a failed gate; the caller checks the
+    launch counts again."""
+    import torch
+    t_phase = wall()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}, "metrics": {}, "fused_exact_agreement": {},
+           "mml_s": {}}
+    data, model = rank300_part(geometry, device, out)
+    v300 = model.factors[data.fields.itemid].contiguous()
+    del model
+    rank300_sweep_part(geometry, device, out)
+    mml_part(data, svd50, v300, device, out)
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    out["phase_s"] = wall() - t_phase
+    return out
+
+
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """Card 0's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -3868,7 +4381,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if importlib.util.find_spec("pandas") is None:
-        print("chip_smoke: pandas is missing; the data-model phases (4-12) "
+        print("chip_smoke: pandas is missing; the data-model phases (4-13) "
               "need it", file=sys.stderr)
         return 1
     from polara_tpu_torch.datasets import (ML1M_GEOMETRY, ML10M_GEOMETRY,
@@ -3982,6 +4495,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serving = serving_phase(trained)
+    svd50 = trained["svd"]      # phase 13's WRMF carries these factors
     del trained
     for name in ("svd", "ials", "bpr", "coffee"):
         check(serving["launches"][name] > 0,
@@ -4048,6 +4562,21 @@ def main() -> int:
         f"{protocols['peak_mem_gib']:.2f} GiB; times on {card}")
     log("  " + json.dumps({"protocols": protocols}))
 
+    log("phase 13: PureSVD rank 300 at ML-10M geometry through evaluate() "
+        "(the kernel walks the rank in slices), the rank sweep (250, 300); "
+        "MyMediaLiteWrapper WRMF-50 and BPRMF-256 through a stand-in CLI")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    external = external_phase(ML10M_GEOMETRY, svd50)
+    del svd50
+    for name in ("rank_300", "rank_300_sweep", "mml_wrmf", "mml_bprmf"):
+        check(external["launches"][name] > 0,
+              f"{name} launched the kernel ({external['launches'][name]}x)")
+    log(f"  phase 13: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{external['peak_mem_gib']:.2f} GiB; times on {card}")
+    log("  " + json.dumps({"external": external}))
+
     least_ms, bound_by = bound_ms(main["kernel_flop"], main["kernel_bytes"])
     top = dict(sweep["kernel"])
     top["bound_ms"], top["bound_by"] = bound_ms(top.pop("flop"),
@@ -4060,7 +4589,8 @@ def main() -> int:
             fields.pop("flop"), fields.pop("bytes"))
         shards[name] = fields
     shapes = {}
-    for name, fields in (("tensor_scoring", tensor["kernel"]),
+    for name, fields in (("rank_300", external["kernel"]),
+                         ("tensor_scoring", tensor["kernel"]),
                          ("serving_batch", serving["kernel"]),
                          ("hybrid_scoring", side["kernel"]),
                          ("netflix_scoring", stream["kernel"])):
@@ -4099,7 +4629,13 @@ def main() -> int:
                                  stream["launches"]["ials_mesh"]
                                  + stream["launches"]["ials_single"]),
                              "protocols": sum(
-                                 protocols["launches"].values())},
+                                 protocols["launches"].values()),
+                             "rank_300": (
+                                 external["launches"]["rank_300"]
+                                 + external["launches"]["rank_300_sweep"]),
+                             "external": (
+                                 external["launches"]["mml_wrmf"]
+                                 + external["launches"]["mml_bprmf"])},
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": least_ms, "bound_by": bound_by,

@@ -49,9 +49,19 @@
 //   it, so once the lists are warm most users' tiles cost one bit.
 // * At k <= 32 the kernel fits 80 registers, so 3 blocks (24 warps) share
 //   an SM and hide each other's barriers and selection.
+// * Any rank: up to kMaxStagedRank (256) proj and the tile hold the whole
+//   rank in shared memory (score_topk_kernel).  Above it the rank is
+//   walked in slices of kSlice rows (score_topk_sliced_kernel): for each
+//   slice, that slice of proj and of the K-major tile is staged and its
+//   fmaf steps run, into the same accumulators, so every score is still
+//   the one chain over d = 0 .. rank-1.  proj is copied K-major once per
+//   call (rank x n_upad, zero past n_users), so a slice of it is staged
+//   with cp.async like the tile.  The flags, the selection and the
+//   prefetch (the next tile's first slice) run after the last slice.
 //
 // One call of polara_fused_score_topk launches two kernels, the panel
-// transpose and then score_topk_kernel.
+// transpose and then score_topk_kernel; above rank 256 three: the panel's
+// and proj's transposes, then score_topk_sliced_kernel.
 //
 // Measurement variants (chip_smoke.py builds them beside the library and
 // times each at the main path's inputs; the port never loads them):
@@ -73,7 +83,8 @@ constexpr int kTile = 128;                     // items per tile
 constexpr int kUsersPerWarp = kUsers / kWarps; // in the selection
 constexpr int kScoreStride = kTile + 4;        // padded score-tile row
 constexpr int kMaxK = 128;
-constexpr int kMaxRank = 256;
+constexpr int kMaxStagedRank = 256;  // rank staged whole; above it, slices
+constexpr int kSlice = 48;           // rank rows per slice (3 blocks per SM)
 constexpr int kPad = -1;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -160,6 +171,49 @@ __device__ __forceinline__ void stage_tile(float* tile, const float* items_t,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Issue the copies of one rank slice, rows d0 .. d0 + dn: of the block's
+// users from the K-major proj (proj_t: rank x n_upad) and of the item tile
+// at base.
+__device__ __forceinline__ void stage_slice(float* uproj, float* tile,
+                                            const float* proj_t, int n_upad,
+                                            int user0, const float* items_t,
+                                            int n_pad, int base, int d0,
+                                            int dn) {
+  for (int e = threadIdx.x; e < dn * (kUsers / 4); e += kThreads) {
+    const int d = e / (kUsers / 4);
+    const int q = e % (kUsers / 4);
+    const float* src = proj_t + (size_t)(d0 + d) * n_upad + user0 + 4 * q;
+#ifdef POLARA_SYNC_STAGING
+    *reinterpret_cast<float4*>(uproj + 4 * e) =
+        *reinterpret_cast<const float4*>(src);
+#else
+    cp_async16(uproj + 4 * e, src);
+#endif
+  }
+  stage_tile(tile, items_t + (size_t)d0 * n_pad, n_pad, base, dn);
+}
+
+// The products of `steps` rank steps into a thread's 4 x 8 accumulators:
+// users from pp ([d][kUsers]), items from xp ([d][kTile]).
+__device__ __forceinline__ void rank_steps(float (&acc)[4][8],
+                                           const float* pp, const float* xp,
+                                           int steps) {
+#pragma unroll 2
+  for (int d = 0; d < steps; ++d) {
+    const float4 p = *reinterpret_cast<const float4*>(pp + d * kUsers);
+    const float4 a = *reinterpret_cast<const float4*>(xp + d * kTile);
+    const float4 b =
+        *reinterpret_cast<const float4*>(xp + d * kTile + kTile / 2);
+    const float pv[4] = {p.x, p.y, p.z, p.w};
+    const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(pv[r], xv[i], acc[r][i]);
+    }
+  }
+}
+
 // items (n_items, rank) row-major -> items_t (rank, n_pad) row-major,
 // zero in the columns at or beyond limit.  Block (32, 8), 32 x 32 tiles.
 __global__ void transpose_panel_kernel(const float* __restrict__ items,
@@ -182,36 +236,46 @@ __global__ void transpose_panel_kernel(const float* __restrict__ items,
   }
 }
 
-// k <= 32 (the main path) fits 80 registers and runs 3 blocks per SM;
-// larger k keeps its lists in registers at 2 or 1 block per SM.
-template <int SLOTS>
-__global__ void __launch_bounds__(kThreads,
-                                  SLOTS == 1 ? 3 : SLOTS == 2 ? 2 : 1)
-score_topk_kernel(const float* __restrict__ proj,
-                  const float* __restrict__ items_t, int n_pad,
-                  const int* __restrict__ seen, float* __restrict__ out_vals,
-                  int* __restrict__ out_idx, int n_users, int rank,
-                  int n_words, int limit, int k, int filter_seen) {
+// The score kernels' body.  Whole rank (SLICED false): proj is row-major
+// (n_users, rank), staged once; shared memory holds rank rows.  SLICED:
+// proj is the K-major copy (rank, n_upad) and shared memory holds kSlice
+// rows, restaged per slice.
+template <int SLOTS, bool SLICED>
+__device__ __forceinline__ void score_topk_body(
+    const float* __restrict__ proj, const float* __restrict__ items_t,
+    int n_pad, const int* __restrict__ seen, float* __restrict__ out_vals,
+    int* __restrict__ out_idx, int n_users, int rank, int n_words, int limit,
+    int k, int filter_seen, int n_upad) {
   extern __shared__ float4 smem4[];
-  float* uproj = reinterpret_cast<float*>(smem4);  // [rank][kUsers]
-  float* tile = uproj + rank * kUsers;             // [rank][kTile]
-  float* scores = tile + rank * kTile;             // [kUsers][kScoreStride]
+  const int staged = SLICED ? kSlice : rank;     // rank rows held
+  float* uproj = reinterpret_cast<float*>(smem4);  // [staged][kUsers]
+  float* tile = uproj + staged * kUsers;           // [staged][kTile]
+  float* scores = tile + staged * kTile;           // [kUsers][kScoreStride]
   float* kth_s = scores + kUsers * kScoreStride;   // k-th value per user
   int* live_s = reinterpret_cast<int*>(kth_s + kUsers);  // tile may enter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int user0 = blockIdx.x * kUsers;
 
-  if (limit > 0) stage_tile(tile, items_t, n_pad, 0, rank);
+  if constexpr (SLICED) {
+    if (limit > 0) {
+      stage_slice(uproj, tile, proj, n_upad, user0, items_t, n_pad, 0, 0,
+                  min(kSlice, rank));
+    }
+  } else {
+    if (limit > 0) stage_tile(tile, items_t, n_pad, 0, rank);
+  }
   if (threadIdx.x < kUsers) {
     kth_s[threadIdx.x] = -CUDART_INF_F;
     live_s[threadIdx.x] = 0;
   }
-  for (int e = threadIdx.x; e < kUsers * rank; e += kThreads) {
-    const int u = e % kUsers;  // consecutive threads, consecutive banks
-    const int d = e / kUsers;
-    uproj[e] = user0 + u < n_users ? proj[(size_t)(user0 + u) * rank + d]
-                                   : 0.f;
+  if constexpr (!SLICED) {
+    for (int e = threadIdx.x; e < kUsers * rank; e += kThreads) {
+      const int u = e % kUsers;  // consecutive threads, consecutive banks
+      const int d = e / kUsers;
+      uproj[e] = user0 + u < n_users ? proj[(size_t)(user0 + u) * rank + d]
+                                     : 0.f;
+    }
   }
 
   // products: this thread's users 4 * ty .. +3, items 4 * tx .. +3 and
@@ -254,19 +318,20 @@ score_topk_kernel(const float* __restrict__ proj,
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
     }
-#pragma unroll 2
-    for (int d = 0; d < rank; ++d) {
-      const float4 p = *reinterpret_cast<const float4*>(pp + d * kUsers);
-      const float4 a = *reinterpret_cast<const float4*>(xp + d * kTile);
-      const float4 b =
-          *reinterpret_cast<const float4*>(xp + d * kTile + kTile / 2);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(pv[r], xv[i], acc[r][i]);
+    if constexpr (SLICED) {
+      // the accumulators carry over from slice to slice
+      for (int d0 = 0;;) {
+        rank_steps(acc, pp, xp, min(kSlice, rank - d0));
+        d0 += kSlice;
+        if (d0 >= rank) break;
+        __syncthreads();  // every warp is done with this slice
+        stage_slice(uproj, tile, proj, n_upad, user0, items_t, n_pad, base,
+                    d0, min(kSlice, rank - d0));
+        cp_async_wait_all();
+        __syncthreads();
       }
+    } else {
+      rank_steps(acc, pp, xp, rank);
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -288,7 +353,12 @@ score_topk_kernel(const float* __restrict__ proj,
     }
     __syncthreads();  // scores written; the item tile is free
     if (base + kTile < limit) {
-      stage_tile(tile, items_t, n_pad, base + kTile, rank);
+      if constexpr (SLICED) {
+        stage_slice(uproj, tile, proj, n_upad, user0, items_t, n_pad,
+                    base + kTile, 0, min(kSlice, rank));
+      } else {
+        stage_tile(tile, items_t, n_pad, base + kTile, rank);
+      }
     }
 
 #ifndef POLARA_PHASE_NO_SELECTION
@@ -343,21 +413,64 @@ score_topk_kernel(const float* __restrict__ proj,
   }
 }
 
+// k <= 32 (the main path) fits 80 registers and runs 3 blocks per SM;
+// larger k keeps its lists in registers at 2 or 1 block per SM.
 template <int SLOTS>
-int launch(const float* proj, const float* items_t, int n_pad,
-           const int* seen, float* out_vals, int* out_idx, int n_users,
-           int rank, int n_words, int limit, int k, int filter_seen,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)rank * (kUsers + kTile) +
+__global__ void __launch_bounds__(kThreads,
+                                  SLOTS == 1 ? 3 : SLOTS == 2 ? 2 : 1)
+score_topk_kernel(const float* __restrict__ proj,
+                  const float* __restrict__ items_t, int n_pad,
+                  const int* __restrict__ seen, float* __restrict__ out_vals,
+                  int* __restrict__ out_idx, int n_users, int rank,
+                  int n_words, int limit, int k, int filter_seen) {
+  score_topk_body<SLOTS, false>(proj, items_t, n_pad, seen, out_vals,
+                                out_idx, n_users, rank, n_words, limit, k,
+                                filter_seen, 0);
+}
+
+// rank > kMaxStagedRank: proj_t is proj K-major (rank, n_upad)
+template <int SLOTS>
+__global__ void __launch_bounds__(kThreads,
+                                  SLOTS == 1 ? 3 : SLOTS == 2 ? 2 : 1)
+score_topk_sliced_kernel(const float* __restrict__ proj_t,
+                         const float* __restrict__ items_t, int n_pad,
+                         const int* __restrict__ seen,
+                         float* __restrict__ out_vals,
+                         int* __restrict__ out_idx, int n_users, int rank,
+                         int n_words, int limit, int k, int filter_seen,
+                         int n_upad) {
+  score_topk_body<SLOTS, true>(proj_t, items_t, n_pad, seen, out_vals,
+                               out_idx, n_users, rank, n_words, limit, k,
+                               filter_seen, n_upad);
+}
+
+template <int SLOTS>
+int launch(const float* proj, const float* proj_t, int n_upad,
+           const float* items_t, int n_pad, const int* seen, float* out_vals,
+           int* out_idx, int n_users, int rank, int n_words, int limit, int k,
+           int filter_seen, cudaStream_t stream) {
+  const bool sliced = rank > kMaxStagedRank;
+  const int staged = sliced ? kSlice : rank;
+  const size_t smem = sizeof(float) * ((size_t)staged * (kUsers + kTile) +
                                        (size_t)kUsers * (kScoreStride + 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      score_topk_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = sliced
+      ? cudaFuncSetAttribute(score_topk_sliced_kernel<SLOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(score_topk_kernel<SLOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_users + kUsers - 1) / kUsers);
-  score_topk_kernel<SLOTS><<<grid, kThreads, smem, stream>>>(
-      proj, items_t, n_pad, seen, out_vals, out_idx, n_users, rank, n_words,
-      limit, k, filter_seen);
+  if (sliced) {
+    score_topk_sliced_kernel<SLOTS><<<grid, kThreads, smem, stream>>>(
+        proj_t, items_t, n_pad, seen, out_vals, out_idx, n_users, rank,
+        n_words, limit, k, filter_seen, n_upad);
+  } else {
+    score_topk_kernel<SLOTS><<<grid, kThreads, smem, stream>>>(
+        proj, items_t, n_pad, seen, out_vals, out_idx, n_users, rank,
+        n_words, limit, k, filter_seen);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -368,26 +481,36 @@ int launch(const float* proj, const float* items_t, int n_pad,
 // packed bits as int32; out_vals/out_idx are (n_users, k).  Columns at or
 // beyond limit = min(n_valid, n_items) are masked.  items_t is scratch for
 // the K-major panel: rank x n_pad f32 with n_pad = limit rounded up to a
-// multiple of 128.  Returns a cudaError_t.
+// multiple of 128.  proj_t is scratch for the K-major proj when rank > 256
+// (rank x n_upad f32, n_upad = n_users rounded up to a multiple of 64;
+// unused, and may be null, at rank <= 256).  Returns a cudaError_t.
 extern "C" int polara_fused_score_topk(const float* proj, const float* items,
-                                       float* items_t, const int* seen,
-                                       float* out_vals, int* out_idx,
-                                       int n_users, int n_items, int rank,
-                                       int n_words, int n_valid, int k,
-                                       int filter_seen, void* stream) {
-  if (k < 1 || k > kMaxK || rank < 1 || rank > kMaxRank || n_users < 0 ||
-      n_items < 0 || n_words < 0) {
+                                       float* items_t, float* proj_t,
+                                       const int* seen, float* out_vals,
+                                       int* out_idx, int n_users, int n_items,
+                                       int rank, int n_words, int n_valid,
+                                       int k, int filter_seen, void* stream) {
+  const bool sliced = rank > kMaxStagedRank;
+  if (k < 1 || k > kMaxK || rank < 1 || n_users < 0 || n_items < 0 ||
+      n_words < 0 || (sliced && (proj_t == nullptr ||
+                                 n_users > 0x7fffffff - kUsers))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_users == 0) return (int)cudaSuccess;
   int limit = n_valid < n_items ? n_valid : n_items;
   if (limit < 0) limit = 0;
   const int n_pad = (limit + kTile - 1) / kTile * kTile;
+  const int n_upad = (n_users + kUsers - 1) / kUsers * kUsers;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pad > 0) {
     const dim3 grid(n_pad / 32, (rank + 31) / 32);
     transpose_panel_kernel<<<grid, dim3(32, 8), 0, s>>>(items, items_t, rank,
                                                         limit, n_pad);
+    if (sliced) {
+      const dim3 ugrid(n_upad / 32, (rank + 31) / 32);
+      transpose_panel_kernel<<<ugrid, dim3(32, 8), 0, s>>>(
+          proj, proj_t, rank, n_users, n_upad);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -396,16 +519,20 @@ extern "C" int polara_fused_score_topk(const float* proj, const float* items,
 #endif
   switch ((k + 31) / 32) {
     case 1:
-      return launch<1>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
-                       rank, n_words, limit, k, filter_seen, s);
+      return launch<1>(proj, proj_t, n_upad, items_t, n_pad, seen, out_vals,
+                       out_idx, n_users, rank, n_words, limit, k, filter_seen,
+                       s);
     case 2:
-      return launch<2>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
-                       rank, n_words, limit, k, filter_seen, s);
+      return launch<2>(proj, proj_t, n_upad, items_t, n_pad, seen, out_vals,
+                       out_idx, n_users, rank, n_words, limit, k, filter_seen,
+                       s);
     case 3:
-      return launch<3>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
-                       rank, n_words, limit, k, filter_seen, s);
+      return launch<3>(proj, proj_t, n_upad, items_t, n_pad, seen, out_vals,
+                       out_idx, n_users, rank, n_words, limit, k, filter_seen,
+                       s);
     default:
-      return launch<4>(proj, items_t, n_pad, seen, out_vals, out_idx, n_users,
-                       rank, n_words, limit, k, filter_seen, s);
+      return launch<4>(proj, proj_t, n_upad, items_t, n_pad, seen, out_vals,
+                       out_idx, n_users, rank, n_words, limit, k, filter_seen,
+                       s);
   }
 }

@@ -26,9 +26,11 @@ import torch
 
 from polara_tpu_torch.ops.topk import PAD_CONST
 
-MAX_K = 128      # the TPU kernel's carry width; the CUDA kernel keeps it
-MAX_RANK = 256   # rank the CUDA kernel stages in shared memory
-ITEM_TILE = 128  # items per tile of the CUDA kernel
+MAX_K = 128        # the TPU kernel's carry width; the CUDA kernel keeps it
+STAGED_RANK = 256  # rank the CUDA kernel stages whole (kMaxStagedRank)
+RANK_SLICE = 48    # rank rows per slice above it (kSlice in fused_topk.cu)
+ITEM_TILE = 128    # items per tile of the CUDA kernel
+USER_BLOCK = 64    # users per block of the CUDA kernel
 
 _WORD_BITS = 32
 
@@ -41,6 +43,12 @@ def panel_columns(n_valid: int) -> int:
     """Columns of the kernel's K-major panel scratch: ``n_valid`` rounded
     up to whole item tiles (the kernel zeroes the tail)."""
     return -(-max(n_valid, 0) // ITEM_TILE) * ITEM_TILE
+
+
+def proj_columns(n_users: int) -> int:
+    """Columns of the kernel's K-major proj scratch above
+    ``STAGED_RANK``: ``n_users`` rounded up to whole user blocks."""
+    return -(-n_users // USER_BLOCK) * USER_BLOCK
 
 
 def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
@@ -132,16 +140,15 @@ def _check_kernel_inputs(proj, items, seen_bits, n_valid, filter_seen):
     if items.shape[1] != rank:
         raise ValueError(f"rank mismatch: proj {tuple(proj.shape)} vs "
                          f"items {tuple(items.shape)}")
-    if not 1 <= rank <= MAX_RANK:
-        raise ValueError(f"fused top-k kernel supports 1 <= rank <= "
-                         f"{MAX_RANK}, got {rank}")
+    if rank < 1:
+        raise ValueError(f"fused top-k kernel needs rank >= 1, got {rank}")
     if seen_bits.shape[0] != proj.shape[0]:
         raise ValueError("seen_bits must have one row per proj row")
     if filter_seen and seen_bits.shape[1] < -(-n_valid // _WORD_BITS):
         raise ValueError(f"seen_bits has {seen_bits.shape[1]} words per "
                          f"row; {n_valid} columns need "
                          f"{-(-n_valid // _WORD_BITS)}")
-    if max(proj.shape[0], items.shape[0], n_valid) >= 2 ** 31:
+    if max(proj_columns(proj.shape[0]), items.shape[0], n_valid) >= 2 ** 31:
         raise ValueError("sizes must fit in int32")
 
 
@@ -157,9 +164,11 @@ def fused_score_topk(proj: torch.Tensor, items: torch.Tensor,
     ``(values, indices)`` with ``return_values``.
 
     ``seen_bits``: (n_users, >= ceil(n_valid / 32)) int32 bitmask (see
-    :func:`pack_seen_bits`).  ``tile_skip`` is accepted for parity with
-    the JAX API and changes nothing: the kernel's threshold test skips
-    losing candidates either way.  CPU tensors take the plain version;
+    :func:`pack_seen_bits`).  Any rank >= 1, as the Pallas kernel: above
+    ``STAGED_RANK`` the CUDA kernel walks the rank in slices.
+    ``tile_skip`` is accepted for parity with the JAX API and changes
+    nothing: the kernel's threshold test skips losing candidates either
+    way.  CPU tensors take the plain version;
     CUDA tensors launch the kernel, counted in
     ``fused_score_topk.launches``.
     """
@@ -189,15 +198,21 @@ def fused_score_topk(proj: torch.Tensor, items: torch.Tensor,
     out_idx = torch.empty((n_users, k), dtype=torch.int32, device=device)
     if n_users:
         lib = load_library()
-        # scratch for the kernel's K-major copy of the panel
-        items_t = torch.empty((proj.shape[1], panel_columns(n_valid)),
+        rank = proj.shape[1]
+        # scratch for the kernel's K-major copies of the panel and, above
+        # STAGED_RANK, of proj
+        items_t = torch.empty((rank, panel_columns(n_valid)),
                               dtype=torch.float32, device=device)
+        proj_t = (torch.empty((rank, proj_columns(n_users)),
+                              dtype=torch.float32, device=device)
+                  if rank > STAGED_RANK else None)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.polara_fused_score_topk(
                 proj.data_ptr(), items.data_ptr(), items_t.data_ptr(),
+                None if proj_t is None else proj_t.data_ptr(),
                 seen_bits.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(),
-                n_users, n_items, proj.shape[1], seen_bits.shape[1], n_valid,
+                n_users, n_items, rank, seen_bits.shape[1], n_valid,
                 k, int(filter_seen), stream)
         if err != 0:
             raise RuntimeError(f"fused_score_topk kernel launch failed "

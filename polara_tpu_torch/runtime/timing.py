@@ -2,8 +2,8 @@
 :mod:`polara_tpu.runtime.timing`).
 
 PyTorch returns from a CUDA call before the device finishes, so
-:func:`track_time` and :func:`timed_blocked` synchronise the device before
-they read the clock, at both ends.  :func:`profiler_trace` records a
+:func:`track_time` and :func:`timed_blocked` synchronise every visible
+card before they read the clock, at both ends.  :func:`profiler_trace` records a
 ``torch.profiler`` trace of a block.
 """
 from __future__ import annotations
@@ -28,8 +28,11 @@ def format_elapsed_time(seconds: float) -> str:
 
 
 def _sync() -> None:
+    """Wait for every visible card once CUDA is initialized: a result may
+    live on any card of a mesh, not only the current one."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        for index in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(index)
 
 
 @contextmanager

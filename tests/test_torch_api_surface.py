@@ -10,13 +10,9 @@ import pkgutil
 
 import polara_tpu
 
-# unported public names, per polara_tpu package
-UNPORTED = {
-    "polara_tpu.models.external": {
-        "LightFMWrapper", "LightFMItemColdStart", "MyMediaLiteWrapper",
-        "TuriFactorizationRecommender",
-    },
-}
+# unported public names, per polara_tpu package (none left: every
+# export has its port)
+UNPORTED = {}
 
 
 def _exports(module):

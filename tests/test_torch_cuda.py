@@ -49,6 +49,12 @@ def _case(seed, n_users, n_items, rank, nnz, device):
     (23, 63, 300, 256, 1, False, 250),
     (24, 129, 1000, 3, 128, True, 999),
     (25, 64, 128, 1, 33, True, 128),
+    # ranks past the whole-rank staging, walked in slices (520 is not a
+    # multiple of the slice)
+    (26, 65, 1000, 257, 10, True, 900),
+    (27, 129, 777, 300, 128, True, 700),
+    (28, 63, 1000, 520, 1, False, 1000),
+    (29, 200, 3000, 300, 10, True, 3000),
 ])
 def test_kernel_matches_plain_version(seed, n_users, n_items, rank, k,
                                       filter_seen, n_valid):
@@ -79,14 +85,15 @@ def test_kernel_raises_instead_of_falling_back():
     with pytest.raises(ValueError):
         tf.fused_score_topk(proj, items.cpu(), bits, 5)
     with pytest.raises(ValueError, match="rank"):
-        wide = torch.zeros((8, tf.MAX_RANK + 1), device=device)
-        tf.fused_score_topk(wide, torch.zeros((100, tf.MAX_RANK + 1),
-                                              device=device), bits, 5)
+        empty = torch.zeros((8, 0), device=device)
+        tf.fused_score_topk(empty, torch.zeros((100, 0), device=device),
+                            bits, 5)
     assert tf.fused_score_topk.launches == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rank,width", [(10, 150), (150, 256)])
+@pytest.mark.parametrize("rank,width", [(10, 150), (150, 256), (250, 300),
+                                        (10, 520)])
 def test_zero_padded_rank_gives_truncated_picks(rank, width):
     """A rank sweep pads truncated factors with zero columns up to the top
     rank: each score is an fmaf chain from 0, so the zero terms leave it
@@ -676,3 +683,128 @@ def test_sampled_fold_in_is_bit_identical_on_the_card():
     recs = model.recommendations
     model._recommendations = None
     np.testing.assert_array_equal(model.recommendations, recs)
+
+
+def _known_user_data(n_users=600, n_items=400, n_events=20_000):
+    from polara_tpu_torch.data import RecommenderData
+    from polara_tpu_torch.datasets.synthetic import \
+        make_synthetic_interactions
+    events = make_synthetic_interactions(n_users=n_users, n_items=n_items,
+                                         n_events=n_events, seed=0)
+    data = RecommenderData(events, "userid", "movieid", "rating", seed=0,
+                           verbose=False)
+    data.warm_start = False
+    data.holdout_size = 1
+    data.prepare()
+    return data
+
+
+def _dyadic_factors(model, seed=2):
+    rs = np.random.RandomState(seed)
+    return {k: None if v is None else torch.as_tensor(
+        np.clip(np.round(rs.randn(*v.shape) * 4) / 4, -2, 2),
+        dtype=torch.float32) for k, v in model.factors.items()}
+
+
+@pytest.mark.cuda
+def test_rank_300_model_on_the_card_equals_the_cpu():
+    """PureSVD at rank 300 under the default route: the card walks the
+    rank in slices (counted launch); with its factors made dyadic the
+    picks equal the CPU's plain version, ties included."""
+    from polara_tpu_torch.models import SVDModel
+    device = _cuda()
+    data = _known_user_data()
+    model = SVDModel(data, device=device)
+    model.verbose = False
+    model.rank = 300
+    model.build()
+    factors = _dyadic_factors(model)
+    model.set_factors(factors)
+    before = tf.fused_score_topk.launches
+    got = model.recommendations
+    assert tf.fused_score_topk.launches > before
+    plain = SVDModel(data, device="cpu")
+    plain.verbose = False
+    plain.rank = 300
+    plain.set_factors(factors)
+    saved = config_default("fused_scoring", True)
+    try:
+        want = plain.recommendations
+    finally:
+        config_default("fused_scoring", saved)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,rank", [("WRMF", 8), ("BPRMF", 300)])
+def test_mymedialite_on_the_card_equals_the_cpu(tmp_path, method, rank):
+    """``MyMediaLiteWrapper`` through the fake CLI: the card launches the
+    kernel (BPRMF at 301 columns: sliced) and picks what the CPU's plain
+    version picks from the same folded factors, re-scored in f64 where
+    they differ (f32 sums in another order)."""
+    import _fake_mml
+    from polara_tpu_torch.models.external import MyMediaLiteWrapper
+    device = _cuda()
+    data = _known_user_data()
+    data.name = "cudadata"
+    library = _fake_mml.install(tmp_path / "mml")
+    picks = {}
+    for where in (device, "cpu"):
+        folder = tmp_path / str(where)
+        folder.mkdir()
+        model = MyMediaLiteWrapper(library, str(folder), method, data,
+                                   device=where)
+        model.verbose = False
+        model.rank = rank
+        model.build()
+        saved = config_default("fused_scoring", True)
+        try:
+            before = tf.fused_score_topk.launches
+            picks[str(where)] = model.recommendations
+            launched = tf.fused_score_topk.launches - before
+        finally:
+            config_default("fused_scoring", saved)
+        if where == device:
+            assert launched > 0
+            v = model.factors["movieid"].cpu()
+        else:
+            assert torch.equal(model.factors["movieid"], v)
+            profiles, _ = model.get_test_matrix()
+    got, want = picks[str(device)], picks["cpu"]
+    scores = (profiles.double() @ v.double() @ v.double().T).numpy()
+    for row in np.flatnonzero((got != want).any(axis=1)):
+        s = scores[row]
+        assert np.abs(s[got[row]] - s[want[row]]).max() <= \
+            1e-5 * np.abs(s).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adapter", ["lightfm", "turi"])
+def test_lightfm_and_turi_on_the_card_equal_the_cpu(adapter):
+    """The LightFM and Turi adapters through their fakes: the picks made
+    on the card (seen-item masking and top-k on the device) equal the
+    CPU's."""
+    import pandas as pd
+    device = _cuda()
+    if adapter == "lightfm":
+        import _fake_lightfm
+        _fake_lightfm.install()
+        from polara_tpu_torch.models.external import LightFMWrapper as cls
+    else:
+        import _fake_turicreate
+        _fake_turicreate.install()
+        from polara_tpu_torch.models.external import (
+            TuriFactorizationRecommender as cls)
+    data = _known_user_data(n_users=120, n_items=80, n_events=3000)
+    rs = np.random.RandomState(1)
+    features = pd.DataFrame(
+        {"genres": [rs.choice(["a", "b", "c"], rs.randint(1, 3),
+                              replace=False).tolist()
+                    for _ in range(80)]}, index=pd.RangeIndex(80))
+    kwargs = ({"item_features": features} if adapter == "lightfm" else {})
+    picks = []
+    for where in (device, "cpu"):
+        model = cls(data, device=where, **kwargs)
+        model.verbose = False
+        picks.append(model.recommendations)
+    np.testing.assert_array_equal(picks[0], picks[1])

@@ -23,12 +23,14 @@ IMPORTS = ("import polara_tpu_torch, polara_tpu_torch.models.svd, "
            "polara_tpu_torch.ops.samplers, polara_tpu_torch.models.sampled, "
            "polara_tpu_torch.models.contextual")
 # the pandas tier: the data model, the experiment pipelines, the
-# preprocessing functions and feature encoders, and the import-path aliases
+# preprocessing functions and feature encoders, the import-path aliases
+# and the external adapters
 PANDAS_TIER = ("import polara_tpu_torch.data, "
                "polara_tpu_torch.evaluation.engine, "
                "polara_tpu_torch.evaluation.pipelines, "
                "polara_tpu_torch.preprocessing, "
-               "polara_tpu_torch.recommender")
+               "polara_tpu_torch.recommender, "
+               "polara_tpu_torch.models.external")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
