@@ -6,12 +6,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Build the CUDA kernels from ``polara_tpu_torch/csrc`` (nvcc, sm_90a),
    and beside them, in parallel, the kernel's measurement variants
-   (``PHASE_VARIANTS``); print ptxas's registers and spills, and require
-   no spills in the top-k kernel's k <= 32 instantiation.
+   (``PHASE_VARIANTS``, ``SLICED_VARIANTS``); print ptxas's registers and
+   spills, and require no spills in the k <= 32 instantiations of both
+   score kernels (whole rank and sliced).
 2. Kernel vs plain version on the card: the JAX package's kernel test
-   shapes, the tiling's edge cases (``EDGE_CASES``, integer factors
-   bit-identical, Gaussian ones re-scored), an integer tie case, a PAD
-   case, a ``filter_seen=False`` case and the main path's shape.
+   shapes, the tiling's edge cases (``EDGE_CASES``, few-user grids
+   included; integer factors bit-identical, Gaussian ones re-scored, and
+   on each one item split, the rule's count and the largest giving
+   identical ids and values), an integer tie case, a PAD case, a
+   ``filter_seen=False`` case and the main path's shape.
 3. The main path at ML-10M geometry (69,878 users x 10,677 items, ~10M
    events): seeded data on the card, one held-out event per user, dense
    block + bf16 power operator, PureSVD rank 50 by randomized subspace
@@ -190,7 +193,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
 13. Past the kernel's whole-rank staging.  (a) PureSVD rank 300 through
    ``evaluate()`` under the default route on phase 3's data and split
    (the data model: training events as its frame, the held-out events
-   set as its holdout): the kernel walks the rank in 48-row slices.  (a')
+   set as its holdout): the kernel walks the rank in 32-row steps.  (a')
    ``find_optimal_svd_rank`` over ranks (250, 300) on phase 5's data
    (a fixed-count build).
    (b) ``MyMediaLiteWrapper`` on (a)'s data through a stand-in for
@@ -225,7 +228,12 @@ and then the score kernel, and ``launches_by_path`` those of phases 3-13;
 ``mesh_shard`` at one shard of each mesh, ``tensor_scoring`` at CoFFee's
 shape, ``serving_batch`` at one serving batch, ``hybrid_scoring`` at
 HybridSVD's, ``netflix_scoring`` at phase 11's 480,189 users,
-``rank_300`` at phase 13's rank, and ``mesh_merge_ms``), and as
+``rank_300`` at phase 13's rank (with ``variant_ms``: the resident-proj
+build beside the library), ``main_k100`` and ``rank_300_k100`` at k =
+100, and ``mesh_merge_ms``; each shape, and the main path's top level,
+also carries the item split: ``splits`` (the rule's count),
+``blocks_per_sm`` (the occupancy it came from) and ``unsplit_ms`` (the
+same inputs with one split)), and as
 the last line ``{"ok": true, "device": {...}}``.  Without CUDA, without
 pandas, or without the package beside it, it exits non-zero and prints no
 result.
@@ -256,20 +264,36 @@ EDGE_CASES = [
     (23, 63, 300, 256, 1, 250, False),
     (24, 129, 1000, 3, 128, 999, True),
     (25, 64, 128, 1, 33, 128, True),
-    # past the whole-rank staging (256): the rank walked in 48-row slices,
-    # 520 not a multiple of the slice
+    # past the whole-rank staging (256): the rank walked in 32-row steps
+    # of 256-item tiles, 257 and 520 ending on a partial step
     (26, 65, 1000, 257, 10, 900, True),
     (27, 129, 777, 300, 128, 700, True),
     (28, 63, 1000, 520, 1, 1000, False),
     (29, 200, 3000, 300, 10, 3000, True),
+    # few users: grids the item split widens (1 user: a tile per split)
+    (30, 1, 3000, 50, 10, 3000, True),
+    (31, 16, 3000, 50, 10, 2900, True),
+    (32, 63, 3000, 150, 33, 3000, True),
+    (33, 64, 3000, 50, 128, 3000, False),
+    (34, 65, 3000, 300, 10, 3000, True),
+    (35, 1024, 10_677, 50, 10, 10_677, True),
 ]
 # builds of fused_topk.cu that switch a part off (macros at its head),
 # timed beside the kernel at the main path's inputs
 PHASE_VARIANTS = {
     "sync_staging": ("POLARA_SYNC_STAGING",),
     "no_selection": ("POLARA_PHASE_NO_SELECTION",),
+    "no_copy": ("POLARA_PHASE_NO_COPY",),
+    "no_products": ("POLARA_PHASE_NO_PRODUCTS",),
     "transpose_only": ("POLARA_PHASE_TRANSPOSE_ONLY",),
 }
+# builds of the sliced path's alternatives, timed with PHASE_VARIANTS at
+# phase 13's rank 300
+SLICED_VARIANTS = {
+    "proj_resident": ("POLARA_SLICED_PROJ_RESIDENT",),
+}
+# variants that must return the kernel's ids and values
+EXACT_VARIANTS = ("sync_staging", "proj_resident")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_LANES_PER_SM = 128      # Hopper: FP32 FMA lanes per SM
 
@@ -400,6 +424,49 @@ def _compare(proj, items, bits, k, filter_seen=True, n_valid=None,
     return agree, diff
 
 
+def split_gate(proj, items, bits, k, filter_seen=True, n_valid=None):
+    """One item split, the rule's count and the largest (a tile a split)
+    give the same ids and values bit for bit (each score is one block's
+    ``fmaf`` chain; the merge keeps the lower column among equal values).
+    Returns the rule's count (None off the card)."""
+    import torch
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 item_tiles, kernel_splits)
+    if not proj.is_cuda:
+        return None
+    n_valid = items.shape[0] if n_valid is None else n_valid
+    rule = kernel_splits(proj.device, proj.shape[0], proj.shape[1], k,
+                         n_valid)
+    got = {splits: fused_score_topk(proj, items, bits, k,
+                                    filter_seen=filter_seen,
+                                    n_valid_cols=n_valid, return_values=True,
+                                    _splits=splits)
+           for splits in (1, rule, item_tiles(n_valid, proj.shape[1]))}
+    vals, ids = got[1]
+    check(all(torch.equal(i, ids) and torch.equal(v, vals)
+              for v, i in got.values()),
+          f"item splits {sorted(got)} (rule {rule}): ids and values "
+          "identical")
+    return rule
+
+
+def split_fields(proj, panel, bits, n_valid, k=TOPK, reps=10):
+    """The item split at these inputs: the rule's count (``splits``), the
+    occupancy it came from (``blocks_per_sm``), the split gate, and the
+    time of the same inputs with one split (``unsplit_ms``)."""
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 kernel_blocks_per_sm)
+    if not proj.is_cuda:
+        return {"splits": None, "blocks_per_sm": None, "unsplit_ms": None}
+    splits = split_gate(proj, panel, bits, k, n_valid=n_valid)
+    return {"splits": splits,
+            "blocks_per_sm": kernel_blocks_per_sm(proj.device, proj.shape[1],
+                                                  k),
+            "unsplit_ms": time_ms(lambda: fused_score_topk(
+                proj, panel, bits, k, n_valid_cols=n_valid, _splits=1),
+                reps)}
+
+
 def _case_tensors(rs, n_users, n_items, rank, nnz, device, integer=False):
     import torch
     from polara_tpu_torch.ops.fused_topk import pack_seen_bits
@@ -445,6 +512,7 @@ def kernel_phase(device="cuda"):
                                               integer=integer)
             _compare(proj, items, bits, k, filter_seen=filter_seen,
                      n_valid=n_valid, exact=integer)
+            split_gate(proj, items, bits, k, filter_seen, n_valid)
     log("case integer ties (rank 1, 12 users x 1000 items, k=16)")
     rs = np.random.RandomState(7)
     proj, items, bits = _case_tensors(rs, 12, 1000, 1, 600, device,
@@ -674,6 +742,9 @@ def main_path(geometry, device="cuda", verify_users=VERIFY_USERS,
     log(f"  kernel {out['kernel_ms']:.3f} ms vs plain {out['plain_ms']:.3f} "
         f"ms at {proj.shape[0]} users; max |value diff| "
         f"{out['max_abs_err']:.2e}")
+    out.update(split_fields(proj, panel, bits, n_items))
+    out["k100"] = k_fields(proj, panel, bits, n_items, 100)
+    log(f"  kernel at k=100: {json.dumps(out['k100'])}")
     # the variants launch only on the card (None in a CPU rehearsal)
     out["phase_ms"] = (phase_split(proj, panel, bits, n_items)
                        if proj.is_cuda else None)
@@ -756,7 +827,7 @@ def phase_split(proj, panel, bits, n_valid, reps=10):
     vals = torch.empty((n_users, TOPK), dtype=torch.float32,
                        device=proj.device)
     idx = torch.empty((n_users, TOPK), dtype=torch.int32, device=proj.device)
-    items_t = torch.empty((rank, panel_columns(n_valid)),
+    items_t = torch.empty((rank, panel_columns(n_valid, rank)),
                           dtype=torch.float32, device=proj.device)
     stream = torch.cuda.current_stream().cuda_stream
     libs = {"full": load_library()}
@@ -766,8 +837,9 @@ def phase_split(proj, panel, bits, n_valid, reps=10):
     def call(lib):
         err = lib.polara_fused_score_topk(
             proj.data_ptr(), panel.data_ptr(), items_t.data_ptr(), None,
-            bits.data_ptr(), vals.data_ptr(), idx.data_ptr(), n_users,
-            panel.shape[0], rank, bits.shape[1], n_valid, TOPK, 1, stream)
+            bits.data_ptr(), vals.data_ptr(), idx.data_ptr(), None, None,
+            n_users, panel.shape[0], rank, bits.shape[1], n_valid, TOPK, 1,
+            1, stream)
         if err:
             raise RuntimeError(f"kernel variant failed: cudaError_t {err}")
 
@@ -1192,13 +1264,10 @@ def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
     """The kernel at the sweep's top-rank shape: its time beside the plain
     version's, cuBLAS's scores alone and the PyTorch route (scores, seen
     mask, ``torch.topk``, as phase 3's ``topk_baseline``), its bound, and
-    the blocks per SM
-    its shared memory allows (the kernel takes
-    4 * (staged * (64 + 128) + 64 * 132) bytes a block, staged = the rank
-    up to ``STAGED_RANK``, above it ``RANK_SLICE``)."""
+    the item split (:func:`split_fields`: the split count, the blocks per
+    SM the occupancy query reports, the time with one split)."""
     import torch
-    from polara_tpu_torch.ops.fused_topk import (RANK_SLICE, STAGED_RANK,
-                                                 fused_score_topk,
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
                                                  fused_score_topk_reference,
                                                  seen_mask)
     n_users, rank = proj.shape
@@ -1215,12 +1284,7 @@ def sweep_kernel_fields(proj, panel, bits, n_items, reps=20):
             s.masked_fill_(seen_mask(bits, n_items), -torch.inf)
             return torch.topk(s, TOPK, dim=1)
         fields["topk_ms"] = time_ms(topk_route, reps)
-        props = torch.cuda.get_device_properties(proj.device)
-        per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-        staged = rank if rank <= STAGED_RANK else RANK_SLICE
-        smem = 4 * (staged * (64 + 128) + 64 * 132)
-        fields["smem_bytes"] = smem
-        fields["blocks_per_sm_by_smem"] = per_sm // (smem + 1024)
+        fields.update(split_fields(proj, panel, bits, n_items, reps=reps))
     fields["flop"] = 2 * n_users * n_items * rank
     fields["bytes"] = 4 * (proj.numel() + n_items * rank
                            + n_users * -(-n_items // 32) + 2 * n_users * TOPK)
@@ -1267,27 +1331,56 @@ def mesh_shard_fields(proj, panel, bits, n_valid, device):
     fields = {"users": n_users, "items": n_valid, "rank": rank,
               "max_abs_err": err, "exact_agreement": agree}
     if proj.is_cuda:
+        # 50 calls: at ~1 ms a call, 20 read up to 5% apart between runs
         fields["ms"] = time_ms(lambda: fused_score_topk(
-            proj, panel, bits, TOPK, n_valid_cols=n_valid), 20)
+            proj, panel, bits, TOPK, n_valid_cols=n_valid), 50)
         fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
             proj, panel, bits, TOPK, n_valid_cols=n_valid), 3)
         fields["library_ms"] = time_ms(lambda: proj @ panel.T, 20)
         fields["topk_ms"] = time_ms(lambda: topk_route(proj, panel, bits,
                                                        n_valid), 20)
+        fields.update(split_fields(proj, panel, bits, n_valid, reps=50))
     fields["flop"] = 2 * n_users * n_valid * rank
     fields["bytes"] = 4 * (proj.numel() + n_valid * rank
                            + n_users * -(-n_valid // 32) + 2 * n_users * TOPK)
     return fields
 
 
-def topk_route(proj, panel, bits, n_valid):
+def topk_route(proj, panel, bits, n_valid, k=TOPK):
     """The library route to the kernel's function: cuBLAS scores, the seen
     mask, ``torch.topk`` (no tie order promised)."""
     import torch
     from polara_tpu_torch.ops.fused_topk import seen_mask
     s = proj @ panel[:n_valid].T
     s.masked_fill_(seen_mask(bits, n_valid), -torch.inf)
-    return torch.topk(s, TOPK, dim=1)
+    return torch.topk(s, k, dim=1)
+
+
+def k_fields(proj, panel, bits, n_valid, k, reps=5):
+    """The kernel at these inputs with a k-slot list: phase 2's gates
+    against its plain version (:func:`_compare`), its time beside the
+    plain version's, cuBLAS's scores alone and the ``torch.topk`` route,
+    the item split (:func:`split_fields`) and its least work."""
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 fused_score_topk_reference)
+    n_users, rank = proj.shape
+    agree, err = _compare(proj, panel, bits, k, n_valid=n_valid)
+    fields = {"users": n_users, "items": n_valid, "rank": rank, "k": k,
+              "max_abs_err": err, "exact_agreement": agree}
+    if proj.is_cuda:
+        fields["ms"] = time_ms(lambda: fused_score_topk(
+            proj, panel, bits, k, n_valid_cols=n_valid), reps)
+        fields["plain_ms"] = time_ms(lambda: fused_score_topk_reference(
+            proj, panel, bits, k, n_valid_cols=n_valid), 2)
+        fields["library_ms"] = time_ms(lambda: proj @ panel[:n_valid].T,
+                                       reps)
+        fields["topk_ms"] = time_ms(lambda: topk_route(
+            proj, panel, bits, n_valid, k), reps)
+        fields.update(split_fields(proj, panel, bits, n_valid, k, reps))
+    fields["flop"] = 2 * n_users * n_valid * rank
+    fields["bytes"] = 4 * (proj.numel() + n_valid * rank
+                           + n_users * -(-n_valid // 32) + 2 * n_users * k)
+    return fields
 
 
 def mesh_phase(geometry, device="cuda"):
@@ -3265,6 +3358,8 @@ def streaming_phase(geometry, ials_geometry, device="cuda",
     if on_card:
         out["kernel"]["library_ms"] = time_ms(lambda: proj_c @ panel.T, 5)
         out["kernel"]["topk_ms"] = time_ms(topk_route, 3)
+        out["kernel"].update(split_fields(proj, panel, bits, n_items,
+                                          reps=5))
     log(f"  kernel at {n_users} x {n_items} x {RANK}: "
         f"{json.dumps(out['kernel'])}")
 
@@ -4058,6 +4153,57 @@ def fused_ok_exact(model, name, out, verify_users=VERIFY_USERS):
           f"{users} users are the plain version's, bit for bit")
 
 
+def sliced_variant_ms(proj, panel, bits, n_valid, reps=5):
+    """Warm ms of the C entry point at these inputs (rank > 256: the
+    sliced ring) in the library the port loads (``full``) and in each of
+    ``PHASE_VARIANTS`` and ``SLICED_VARIANTS``, in turns full, variants,
+    variants reversed, full; those of ``EXACT_VARIANTS`` must return the
+    kernel's ids and values."""
+    import torch
+    from polara_tpu_torch.ops._cuda_build import load_library
+    from polara_tpu_torch.ops.fused_topk import (fused_score_topk,
+                                                 panel_columns, proj_columns)
+    n_users, rank = proj.shape
+    device = proj.device
+    vals = torch.empty((n_users, TOPK), dtype=torch.float32, device=device)
+    idx = torch.empty((n_users, TOPK), dtype=torch.int32, device=device)
+    items_t = torch.empty((rank, panel_columns(n_valid, rank)),
+                          dtype=torch.float32, device=device)
+    proj_t = torch.empty((rank, proj_columns(n_users)), dtype=torch.float32,
+                         device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = {**PHASE_VARIANTS, **SLICED_VARIANTS}
+    libs = {"full": load_library()}
+    libs.update({name: load_library(defines)
+                 for name, defines in variants.items()})
+
+    def call(lib):
+        err = lib.polara_fused_score_topk(
+            proj.data_ptr(), panel.data_ptr(), items_t.data_ptr(),
+            proj_t.data_ptr(), bits.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), None, None, n_users, panel.shape[0], rank,
+            bits.shape[1], n_valid, TOPK, 1, 1, stream)
+        if err:
+            raise RuntimeError(f"kernel variant failed: cudaError_t {err}")
+
+    want_vals, want_idx = fused_score_topk(proj, panel, bits, TOPK,
+                                           n_valid_cols=n_valid,
+                                           return_values=True)
+    for name in EXACT_VARIANTS:
+        call(libs[name])
+        torch.cuda.synchronize()
+        check(torch.equal(idx, want_idx) and torch.equal(vals, want_vals),
+              f"variant {name} returns the kernel's ids and values at "
+              f"rank {rank}")
+    times = dict.fromkeys(libs, 0.0)
+    variants = list(variants)
+    for name in ["full", *variants, *variants[::-1], "full"]:
+        times[name] += time_ms(lambda: call(libs[name]), reps) / 2
+    log("  sliced variants (ms): " + ", ".join(f"{k} {t:.3f}"
+                                               for k, t in times.items()))
+    return times
+
+
 def rank300_part(geometry, device, out):
     """(a) PureSVD at rank 300 through ``evaluate()`` under the default
     route, on phase 3's data and split, against exact f64 factors."""
@@ -4134,8 +4280,13 @@ def rank300_part(geometry, device, out):
     out["kernel"] = sweep_kernel_fields(proj, v300, bits, n_items)
     agree, out["kernel"]["max_abs_err"] = _compare(proj, v300, bits, TOPK)
     out["kernel"]["exact_agreement"] = agree
+    if proj.is_cuda:
+        out["kernel"]["variant_ms"] = sliced_variant_ms(proj, v300, bits,
+                                                        n_items)
     log(f"  kernel at {proj.shape[0]} x {n_items} x {C5_RANK}: "
         + json.dumps(out["kernel"]))
+    out["kernel_k100"] = k_fields(proj, v300, bits, n_items, 100)
+    log(f"  kernel at k=100: {json.dumps(out['kernel_k100'])}")
     return data, model
 
 
@@ -4350,14 +4501,16 @@ def bound_ms(flop: float, nbytes: float):
 def build_phase():
     """Phase 1: build the kernels and their measurement variants, one nvcc
     each, all at once; print ptxas's registers and spills and require none
-    in the top-k kernel's k <= 32 instantiation (the main path's)."""
+    in the k <= 32 instantiations of both score kernels (the main path's
+    and the sliced ring's)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from polara_tpu_torch.ops import _cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1 + len(PHASE_VARIANTS)) as pool:
+    variants = [*PHASE_VARIANTS.values(), *SLICED_VARIANTS.values()]
+    with ThreadPoolExecutor(1 + len(variants)) as pool:
         for built in [pool.submit(_cuda_build.build, defines) for defines
-                      in [(), *PHASE_VARIANTS.values()]]:
+                      in [(), *variants]]:
             built.result()
     _cuda_build.load_library()
     build_s = time.perf_counter() - t0
@@ -4368,9 +4521,10 @@ def build_phase():
             f"<{found.group(2)}>" if found.group(2) else "")
         report[short] = r
         log(f"  ptxas {short}: {r}")
-    main = report.get("score_topk_kernel<1>", {})
-    check(main.get("spill_stores") == 0 and main.get("spill_loads") == 0,
-          "ptxas: no spills in score_topk_kernel<1>")
+    for kernel in ("score_topk_kernel<1>", "score_topk_sliced_kernel<1>"):
+        r = report.get(kernel, {})
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"ptxas: no spills in {kernel}")
     log(f"  kernel build {build_s:.2f} s")
     return build_s, report
 
@@ -4590,6 +4744,8 @@ def main() -> int:
         shards[name] = fields
     shapes = {}
     for name, fields in (("rank_300", external["kernel"]),
+                         ("rank_300_k100", external["kernel_k100"]),
+                         ("main_k100", main["k100"]),
                          ("tensor_scoring", tensor["kernel"]),
                          ("serving_batch", serving["kernel"]),
                          ("hybrid_scoring", side["kernel"]),
@@ -4641,6 +4797,8 @@ def main() -> int:
         "bound_ms": least_ms, "bound_by": bound_by,
         "library_ms": main["stage_ms"]["cublas_scores_only"],
         "topk_ms": main["stage_ms"]["topk_baseline"],
+        "splits": main["splits"], "blocks_per_sm": main["blocks_per_sm"],
+        "unsplit_ms": main["unsplit_ms"],
         "phase_ms": main["phase_ms"],
         "clocks_under_load": main["kernel_clocks"],
         "ptxas": ptxas, "sweep_top_rank": top, "mesh_shard": shards,

@@ -122,8 +122,11 @@ def load_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.polara_fused_score_topk
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                       i32, i32, i32, i32, i32, i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+        fn = lib.polara_fused_blocks_per_sm
+        fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
         fn.restype = i32
         _libraries[defines] = lib
         if not defines:

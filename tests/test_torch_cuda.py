@@ -34,8 +34,8 @@ def _case(seed, n_users, n_items, rank, nnz, device):
             torch.as_tensor(items, dtype=torch.float32, device=device), bits)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,n_users,n_items,rank,k,filter_seen,n_valid", [
+# (seed, n_users, n_items, rank, k, filter_seen, n_valid)
+KERNEL_CASES = [
     (11, 33, 5000, 16, 20, True, None),
     (13, 16, 4096, 8, 128, True, None),
     (15, 300, 3000, 50, 10, True, None),
@@ -55,7 +55,21 @@ def _case(seed, n_users, n_items, rank, nnz, device):
     (27, 129, 777, 300, 128, True, 700),
     (28, 63, 1000, 520, 1, False, 1000),
     (29, 200, 3000, 300, 10, True, 3000),
-])
+]
+# few users: grids the item split widens (1 user: one tile per split)
+FEW_USER_CASES = [
+    (30, 1, 3000, 50, 10, True, None),
+    (31, 16, 3000, 50, 10, True, 2900),
+    (32, 63, 3000, 150, 33, True, None),
+    (33, 64, 3000, 50, 128, False, None),
+    (34, 65, 3000, 300, 10, True, None),
+    (35, 1024, 10_677, 50, 10, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_users,n_items,rank,k,filter_seen,n_valid",
+                         KERNEL_CASES)
 def test_kernel_matches_plain_version(seed, n_users, n_items, rank, k,
                                       filter_seen, n_valid):
     device = _cuda()
@@ -73,6 +87,96 @@ def test_kernel_matches_plain_version(seed, n_users, n_items, rank, k,
     assert tf.fused_score_topk.launches == before + 1
     assert torch.equal(ki, pi)
     assert torch.equal(kv, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_users,n_items,rank,k,filter_seen,n_valid",
+                         FEW_USER_CASES + KERNEL_CASES)
+def test_item_split_is_bit_identical(seed, n_users, n_items, rank, k,
+                                     filter_seen, n_valid):
+    """One split, the rule's count and the largest (one tile a split) give
+    the same ids and values, equal to the plain version's (dyadic factors:
+    exact scores, so ties decide picks); one counted launch each."""
+    device = _cuda()
+    proj, items, bits = _case(seed, n_users, n_items, rank, 3 * n_users,
+                              device)
+    n_valid_eff = n_items if n_valid is None else n_valid
+    rule = tf.kernel_splits(device, n_users, rank, k, n_valid_eff)
+    largest = tf.item_tiles(n_valid_eff, rank)
+    if n_users <= 64 and largest > 1:
+        assert rule > 1     # a lone user block leaves slots to fill
+    pv, pi = tf.fused_score_topk_reference(proj, items, bits, k,
+                                           filter_seen=filter_seen,
+                                           n_valid_cols=n_valid,
+                                           return_values=True)
+    for splits in (1, None, largest):
+        before = tf.fused_score_topk.launches
+        kv, ki = tf.fused_score_topk(proj, items, bits, k,
+                                     filter_seen=filter_seen,
+                                     n_valid_cols=n_valid,
+                                     return_values=True, _splits=splits)
+        torch.cuda.synchronize()
+        assert tf.fused_score_topk.launches == before + 1
+        assert torch.equal(ki, pi), f"splits={splits} (rule {rule})"
+        assert torch.equal(kv, pv), f"splits={splits} (rule {rule})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 33, 128])
+@pytest.mark.parametrize("rank", [257, 300, 520])
+def test_sliced_ring_matches_plain_version(rank, k):
+    """Ranks past the whole-rank staging go through the two-stage ring of
+    32-row steps over 256-item tiles (257, 300 and 520 end on a partial
+    step); several tiles per block, so steps cross tile boundaries, and
+    the selection from registers sees ties across interleaved columns.
+    Dyadic factors: exact."""
+    device = _cuda()
+    proj, items, bits = _case(rank + k, 130, 1500, rank, 600, device)
+    pv, pi = tf.fused_score_topk_reference(proj, items, bits, k,
+                                           n_valid_cols=1400,
+                                           return_values=True)
+    kv, ki = tf.fused_score_topk(proj, items, bits, k, n_valid_cols=1400,
+                                 return_values=True, _splits=1)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10])
+def test_sliced_ring_keeps_the_tie_rule(k):
+    """Integer factors in {0, 1, 2} at rank 300: scores take few values, so
+    ties between a lane's interleaved columns decide most picks; every
+    split count must still give the plain version's lowest columns."""
+    device = _cuda()
+    rs = np.random.RandomState(k)
+    proj = torch.as_tensor(rs.randint(0, 3, (70, 300)), dtype=torch.float32,
+                           device=device)
+    items = torch.as_tensor(rs.randint(0, 3, (1300, 300)),
+                            dtype=torch.float32, device=device)
+    bits = torch.zeros((70, 41), dtype=torch.int32, device=device)
+    pv, pi = tf.fused_score_topk_reference(proj, items, bits, k,
+                                           return_values=True)
+    for splits in (1, None, tf.item_tiles(1300, 300)):
+        kv, ki = tf.fused_score_topk(proj, items, bits, k,
+                                     return_values=True, _splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), splits
+
+
+@pytest.mark.cuda
+def test_kernel_occupancy_and_splits_on_the_card():
+    """The occupancy query reports the blocks the launch bounds and shared
+    memory allow (3 per SM at rank 50, 2 on the sliced ring at k <= 32,
+    one at rank 150), and the rule widens a serving batch only."""
+    device = _cuda()
+    assert tf.kernel_blocks_per_sm(device, 50, 10) == 3
+    assert tf.kernel_blocks_per_sm(device, 300, 10) == 2
+    assert tf.kernel_blocks_per_sm(device, 150, 10) == 1
+    assert tf.kernel_splits(device, 69_878, 50, 10, 10_677) == 1
+    assert tf.kernel_splits(device, 1_024, 50, 10, 10_677) > 1
+    with pytest.raises(ValueError, match="splits"):
+        proj, items, bits = _case(1, 8, 300, 4, 10, device)
+        tf.fused_score_topk(proj, items, bits, 5, _splits=4)
 
 
 @pytest.mark.cuda
