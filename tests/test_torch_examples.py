@@ -10,27 +10,12 @@ import sys
 from contextlib import redirect_stdout
 
 import pytest
-import torch
 
 import _fake_lightfm
 
 EXAMPLES_DIR = (pathlib.Path(__file__).resolve().parent.parent
                 / "examples_torch")
 EXAMPLES = sorted(p.stem for p in EXAMPLES_DIR.glob("*.py"))
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each example on one torch thread: the examples run many small torch
-    ops, and beside the JAX examples in the suite's parallel workers a
-    torch pool on every core and XLA's contend until both run tens of
-    times slower than alone."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _load(name):
