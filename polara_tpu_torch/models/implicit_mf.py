@@ -21,7 +21,8 @@ from polara_tpu_torch import config as defaults
 from polara_tpu_torch.models.base import EmbeddingsMixin, RecommenderModel
 from polara_tpu_torch.models.mf import ProbabilisticMF
 from polara_tpu_torch.ops.implicit import (bpr_train, ials_fold_in,
-                                           ials_train, ials_train_events)
+                                           ials_tier_work, ials_train,
+                                           ials_train_events)
 from polara_tpu_torch.ops.topk import mask_and_topk
 from polara_tpu_torch.runtime.timing import track_time
 
@@ -100,19 +101,32 @@ class ImplicitALS(_RankedFactorModel):
         self.batch_entities: Optional[int] = None
         self.seed = 0
         self.method = "iALS"
+        # the last build's tier and the work estimates that chose it
+        self.ials_info: dict = {}
 
     def build(self):
         mesh = self.active_mesh
         coo = self.get_training_matrix()
         # past the per-device budget the dense ratings block is not made:
-        # the event tier computes the same sweeps from the events
+        # the event tier computes the same sweeps from the events.  Within
+        # it a single-device build takes the tier with less work at these
+        # sizes (the dense tier's is mostly cells where C - 1 is zero)
         budget = defaults.get_default("hbm_score_budget_gb") * 2 ** 30
         if mesh is not None:
             from polara_tpu_torch.runtime.mesh import shard_device_count
             budget *= shard_device_count(mesh)
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
         dense_bytes = coo.shape[0] * coo.shape[1] * itemsize
-        if dense_bytes > budget:
+        work = ials_tier_work(*coo.shape, len(coo.vals), self.rank,
+                              self.num_epochs)
+        events = dense_bytes > budget or (
+            mesh is None and work["events"] < work["dense"])
+        self.ials_info = {"tier": "events" if events else "dense",
+                          "dense_work": work["dense"],
+                          "events_work": work["events"]}
+        if self.verbose:
+            print(f"{self.method} tier: {self.ials_info}")
+        if events:
             stream_kw = {} if self.batch_entities is None else \
                 {"batch_entities": self.batch_entities}
             with track_time(self.training_time, verbose=self.verbose,

@@ -10,10 +10,14 @@ these models to the ``implicit`` C library,
   (:func:`ials_train`) forms each batch's weighted Grams with one batched
   product over the dense ratings block, recomputing the confidence per
   batch; the event tier (:func:`ials_train_events`) forms them from each
-  entity's own events in tile-aligned panels.  The solves are a batched
-  Cholesky (``torch.linalg.cholesky_ex``): a system that is not positive
-  definite raises at the end of its half-sweep, with no fallback.  The
-  same solve is the warm-start fold-in (:func:`ials_fold_in`).
+  entity's own events in tile-aligned panels, summed per entity in a
+  fixed order (two builds give the same bits on the card).
+  :func:`ials_tier_work` estimates what each tier computes at an input's
+  sizes; ``ImplicitALS`` routes a single-device build by it.  The solves
+  are a batched Cholesky (``torch.linalg.cholesky_ex``): a system that is
+  not positive definite raises at the end of its half-sweep, with no
+  fallback.  The same solve is the warm-start fold-in
+  (:func:`ials_fold_in`).
 * **BPR** (Rendle et al.): minibatch SGD over sampled (user, pos, neg)
   triples; negatives drawn uniformly and masked against a dense seen
   matrix; the updates scatter-add with ``index_add_`` (atomics on the
@@ -252,8 +256,8 @@ class EllSide(NamedTuple):
     Every entity's event list is padded to a multiple of ``tile`` and laid
     out contiguously, so each tile of ``tile`` events belongs to exactly
     one entity: per-tile normal-equation contributions become batched
-    products, and the per-entity reduction is an ``index_add_`` over tile
-    owners.  Entities batch in natural order under an event budget
+    products, and the per-entity reduction is a sorted segment sum over
+    tile owners.  Entities batch in natural order under an event budget
     (variable entity counts per batch, equalized tile spans), so skewed
     sides (the popular item head) never blow a window up.  Each batch
     covers a clamped window of ``tb`` tiles; tiles inside the window that
@@ -399,6 +403,24 @@ def stage_events_side(maj: torch.Tensor, minor: torch.Tensor,
                    n_entities=n_major, batch_entities=be_seg, tile=tile)
 
 
+def _owner_lengths(owner_local: torch.Tensor,
+                   batch_entities: int) -> torch.Tensor:
+    """Each batch window's tiles per segment, in window order: the
+    window's leading tiles of earlier batches, then each of the batch's
+    ``batch_entities`` entities, then its trailing tiles (of later
+    batches, padding and unowned entities) -- (n_batches,
+    batch_entities + 2).  Owners ascend through a window, so these
+    segments are contiguous; the counts are integer sums, exact in any
+    order."""
+    owned = owner_local < batch_entities
+    leading = ~owned & (torch.cumsum(owned, 1) == 0)
+    segment = torch.where(owned, owner_local + 1,
+                          torch.where(leading, 0, batch_entities + 1))
+    return torch.zeros((owner_local.shape[0], batch_entities + 2),
+                       dtype=torch.int64, device=owner_local.device
+                       ).scatter_add_(1, segment, torch.ones_like(segment))
+
+
 def _ell_half_sweep(minor_p, w_p, starts, ent_starts, n_ents, owner_local,
                     other, reg, n_entities: int, batch_entities: int,
                     tile: int) -> torch.Tensor:
@@ -407,10 +429,12 @@ def _ell_half_sweep(minor_p, w_p, starts, ent_starts, n_ents, owner_local,
 
     Per batch window: gather the other side's factor rows for the
     window's events, form per-tile Gram/rhs contributions as batched
-    products (the nnz·k² work), sum them by local owner (``index_add_``)
-    and run one batched Cholesky solve.  Peak live memory is one
-    (tb·tile, k) gather window, bounded by the staging event budget.  Each
-    batch writes back only its own ``n_ents`` rows.
+    products (the nnz·k² work), sum them by local owner (a sorted segment
+    sum: one thread per output element adds its entity's tiles in order,
+    so two builds give the same bits on the card, where ``index_add_``'s
+    atomics do not) and run one batched Cholesky solve.  Peak live memory
+    is one (tb·tile, k) gather window, bounded by the staging event
+    budget.  Each batch writes back only its own ``n_ents`` rows.
     """
     k = other.shape[1]
     tb = owner_local.shape[1]
@@ -418,7 +442,8 @@ def _ell_half_sweep(minor_p, w_p, starts, ent_starts, n_ents, owner_local,
     rowid = torch.arange(batch_entities, device=other.device)[:, None]
     out = other.new_zeros((n_entities, k))
     failures: List[torch.Tensor] = []
-    for st, ent0, ne, ol in zip(starts, ent_starts, n_ents, owner_local):
+    lengths = _owner_lengths(owner_local, batch_entities)
+    for st, ent0, ne, lens in zip(starts, ent_starts, n_ents, lengths):
         ev0, ent0 = int(st) * tile, int(ent0)
         msl = minor_p[ev0:ev0 + tb * tile]
         wsl = w_p[ev0:ev0 + tb * tile]
@@ -427,10 +452,14 @@ def _ell_half_sweep(minor_p, w_p, starts, ent_starts, n_ents, owner_local,
         gt = torch.matmul(yw.transpose(1, 2), y)                # (tb, k, k)
         rw = (wsl + (wsl > 0).to(wsl.dtype)).view(tb, tile)
         rt = torch.matmul(rw[:, None, :], y)[:, 0]              # (tb, k)
-        g = other.new_zeros((batch_entities + 1, k, k)).index_add_(0, ol, gt)
-        r = other.new_zeros((batch_entities + 1, k)).index_add_(0, ol, rt)
-        a = gram[None] + g[:batch_entities]
-        x = _cholesky_solve(a, r[:batch_entities], failures)
+        # unsafe: skip the lengths' checks, two host syncs a call;
+        # _owner_lengths' counts are whole and sum to the window
+        g = torch.segment_reduce(gt, "sum", lengths=lens, axis=0,
+                                 unsafe=True)
+        r = torch.segment_reduce(rt, "sum", lengths=lens, axis=0,
+                                 unsafe=True)
+        a = gram[None] + g[1:batch_entities + 1]
+        x = _cholesky_solve(a, r[1:batch_entities + 1], failures)
         cur = out[ent0:ent0 + batch_entities]
         out[ent0:ent0 + batch_entities] = torch.where(rowid < int(ne), x,
                                                       cur)
@@ -498,6 +527,33 @@ def ials_train_events(rows, cols, vals, shape, rank: int,
         user_factors = half(user_side, item_factors)
         item_factors = half(item_side, user_factors)
     return ImplicitFactors(user=user_factors, item=item_factors)
+
+
+# The event tier's seconds per unit of :func:`ials_tier_work` over the
+# dense tier's where the two builds take equal time (54% density at
+# 8,000 x 4,000, rank 50), measured on an H100 (PERF.md, "iALS tiers")
+EVENT_TIER_COST = 1.85
+
+
+def ials_tier_work(n_users: int, n_items: int, nnz: int, rank: int,
+                   num_epochs: int) -> dict:
+    """Multiply-adds that each single-device iALS tier spends where the
+    two differ, at an input's sizes; the Cholesky solves, alike in both,
+    are left out.
+
+    ``dense``: every half-sweep pair forms the normal systems over all
+    ``2·n_users·n_items`` cells, each a rank-one Gram update (k²) and a
+    right-hand-side term (k).  ``events``: the same per tile-padded event
+    of both sides (``2·nnz`` events, half a 128-event tile of padding per
+    entity), plus the build's staging: two sorts of the events and one
+    pass over the padded panels.  ``events`` is scaled by :data:`EVENT_TIER_COST`,
+    so the cheaper tier has the smaller number."""
+    per_cell = rank * rank + rank
+    dense = 2.0 * num_epochs * n_users * n_items * per_cell
+    padded = 2.0 * nnz + (n_users + n_items) * 64
+    staging = 2.0 * nnz * math.log2(max(nnz, 2)) + padded * rank
+    events = num_epochs * padded * per_cell + staging
+    return {"dense": dense, "events": EVENT_TIER_COST * events}
 
 
 def ials_fold_in(profiles: torch.Tensor, item_factors: torch.Tensor,

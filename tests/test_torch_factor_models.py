@@ -138,6 +138,64 @@ def test_ials_routes_to_the_event_tier_past_the_budget(known):
             <= 1e-4 * full.abs().max()).all()
 
 
+@pytest.mark.parametrize("n_users,n_items,n_events,tier", [
+    (400, 300, 2400, "events"),       # 2% dense: most cells hold no event
+    (80, 40, 1600, "dense"),          # 50% dense: tile padding outweighs
+])
+def test_ials_routes_by_the_work_rule(n_users, n_items, n_events, tier):
+    """Within the budget a single-device build takes the tier that
+    ``ials_tier_work`` finds cheaper, says so in ``ials_info``, and gives
+    that tier's trainer's factors on the same events, bit for bit."""
+    events = make_synthetic_interactions(n_users=n_users, n_items=n_items,
+                                         n_events=n_events, seed=2)
+    data = TorchData(events, "userid", "movieid", "rating", seed=0,
+                     verbose=False)
+    data.holdout_size = 1
+    data.prepare()
+    model = _model(TorchALS, data, num_epochs=3)
+    model.build()
+    coo = model.get_training_matrix()
+    work = ti.ials_tier_work(*coo.shape, len(coo.vals), RANK, 3)
+    assert model.ials_info == {"tier": tier, "dense_work": work["dense"],
+                               "events_work": work["events"]}
+    if tier == "events":
+        want = ti.ials_train_events(coo.rows, coo.cols, coo.vals, coo.shape,
+                                    RANK, num_epochs=3)
+    else:
+        want = ti.ials_train(model.get_training_matrix(dense=True), RANK,
+                             num_epochs=3)
+    assert torch.equal(model.factors["userid"], want.user)
+    assert torch.equal(model.factors["movieid"], want.item)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_event_owner_sums_equal_an_owner_scatter(pad):
+    """The event tier's per-entity sums (sorted segment sums over the
+    window's owner segments) equal an ``index_add_`` over tile owners, bit
+    for bit on the CPU, on sides with clamped windows, and with the
+    mesh trainer's forced geometry (tail tiles, zero-entity batches,
+    unowned segment rows)."""
+    rs = np.random.RandomState(4)
+    n_major, n_minor, nnz, tile = 37, 23, 400, 4
+    maj = torch.as_tensor(np.sort(rs.zipf(1.6, nnz) % n_major))
+    minor = torch.as_tensor(rs.randint(0, n_minor, nnz))
+    w = torch.as_tensor(rs.rand(nnz), dtype=torch.float32)
+    forced = dict(pad_events_to=nnz * 3, window_tiles=40, pad_batches_to=11,
+                  min_batch_entities=12) if pad else {}
+    side = ti.stage_events_side(maj, minor, w, n_major, tile=tile,
+                                batch_entities=8, max_window_events=60,
+                                **forced)
+    be, tb = side.batch_entities, side.owner_local.shape[1]
+    lengths = ti._owner_lengths(side.owner_local, be)
+    assert (lengths.sum(1) == tb).all()
+    terms = torch.as_tensor(rs.randn(len(side.starts), tb, 3, 3),
+                            dtype=torch.float32)
+    for ol, lens, t in zip(side.owner_local, lengths, terms):
+        want = torch.zeros((be + 1, 3, 3)).index_add_(0, ol, t)[:be]
+        got = torch.segment_reduce(t, "sum", lengths=lens, axis=0)
+        assert torch.equal(got[1:be + 1], want)
+
+
 def test_ials_on_a_mesh_past_the_budget_raises(known):
     """Past the budget on a (4, 1) mesh the build takes the event-sharded
     ``distributed_ials_events`` (it raised until that was ported): its

@@ -354,17 +354,22 @@ def restore_budget():
         config.set_default("streaming_split_head", split)
 
 
-@pytest.mark.parametrize("budget,split,svd_tier,ials_tier", [
-    (1e-3, True, "dense", "dense"),
-    (3e-4, True, "coo", "events"),
-    (1e-5, True, "split", "events"),
-    (1e-5, False, "tiled", "events"),
+@pytest.mark.parametrize("budget,split,svd_tier,jax_ials_tier,ials_tier", [
+    (1e-3, True, "dense", "dense", "events"),
+    (3e-4, True, "coo", "events", "events"),
+    (1e-5, True, "split", "events", "events"),
+    (1e-5, False, "tiled", "events", "events"),
 ])
 def test_single_device_routing_follows_jax(sparse_pair, monkeypatch,
                                            restore_budget, budget, split,
-                                           svd_tier, ials_tier):
-    """A sweep of ``hbm_score_budget_gb``: the port's ``SVDModel`` and
-    ``ImplicitALS`` take the JAX package's tier at every budget."""
+                                           svd_tier, jax_ials_tier,
+                                           ials_tier):
+    """A sweep of ``hbm_score_budget_gb``: the port's ``SVDModel`` takes the
+    JAX package's tier at every budget.  Its ``ImplicitALS`` takes the
+    event tier past the budget, as the JAX package does, and within it
+    the tier of less work: at 3.3% density the events
+    (``ials_info["tier"]`` says so), where the JAX package takes the dense
+    block."""
     jdata, tdata = sparse_pair
     _spy_routes(monkeypatch)
     _budgeted(budget, split)
@@ -374,8 +379,10 @@ def test_single_device_routing_follows_jax(sparse_pair, monkeypatch,
         kw = {} if svd is JaxSVD else {"device": "cpu"}
         model = svd(data, **kw)
         model.rank = 2
-        routes.append((_route(model), _route(als(data, **kw))))
-    assert routes[0] == routes[1] == (svd_tier, ials_tier)
+        als_model = als(data, **kw)
+        routes.append((_route(model), _route(als_model)))
+    assert routes == [(svd_tier, jax_ials_tier), (svd_tier, ials_tier)]
+    assert als_model.ials_info["tier"] == ials_tier
 
 
 def test_streaming_svd_recommends_like_the_dense_block(sparse_pair,
